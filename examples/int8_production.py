@@ -1,10 +1,10 @@
 """The recommended production setting for rating/count data: the whole
 pipeline on int8 V storage (docs/TUNING.md §1–2).
 
-V is held once as int8 + one symmetric scale — quarter the HBM
-footprint, exact on ≤127-level grids — and on TPU the updates ride the
-MXU's double-rate int8 path (Frobenius, measured 1.4–1.7× over f32) or
-the scale-folded blockwise KL. The serving stage stores the item table
+V is held once as int8 + one symmetric scale — quarter the device
+memory footprint, exact on ≤127-level grids — and the updates run a
+bf16-dequantized contraction (dense Frobenius MU), int8 x int8 dots
+(ALS family) or the scale-folded blockwise KL. The serving stage stores the item table
 bf16 (halved footprint, f32-accumulated scores)."""
 
 from _common import base_parser, load_or_synthesize

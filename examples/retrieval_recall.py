@@ -33,23 +33,19 @@ def main():
     print(f"recall@{args.k} = {rec:.4f} "
           f"(frobenius_error={res.frobenius_error:.2f})")
 
-    # production serving. On a single TPU prefer method="reservoir" —
-    # the fused Pallas scan measures 1.7-1.8x the megablock approx q/s
-    # at better recall (PERF.md round 4b; runs in interpret mode off-
-    # TPU, so this example works anywhere). Exclusion of each user's
-    # training items is exact; recommend_certified additionally proves
-    # rows exact up to kth-score ties.
-    import jax
-
+    # production serving: method="reservoir" runs the top-2-per-slot
+    # reservoir scan (the Triton kernel on the GPU, plain XLA on the
+    # CPU). Exclusion of each user's training items is exact;
+    # recommend_certified additionally proves rows exact up to kth-score
+    # ties.
     from nmftpu.serving import Recommender
 
-    method = "reservoir" if jax.default_backend() == "tpu" else "approx"
+    method = "reservoir"
     server = Recommender(res.W, res.H, train=train, method=method)
     s, i = server.recommend([0, 1, 2], k=10)
     # fallback="exact": uncertified rows are re-scanned exact in the
-    # same call, so EVERY row is the exact top-k (measured 2,605 q/s =
-    # 36x the exact scan at m=10.49M/r256 — BENCH_serving_r05.json);
-    # `cert` still reports the pass-1 rate.
+    # same call, so EVERY row is the exact top-k; `cert` still reports
+    # the pass-1 rate.
     s2, i2, cert = server.recommend_certified([0, 1, 2], k=10,
                                               fallback="exact")
     print(f"serving[{method}]: top-10 for 3 users, all-exact "

@@ -3,7 +3,7 @@
  * Flat extern "C" surface in the spirit of the reference's C API
  * (SURVEY.md C1: a dlopen-able .so with C entry points so any host
  * language can bind). This library owns the CPU-side hot paths that feed
- * the TPU engine: MovieLens ratings parsing (u.data / ratings.csv), id
+ * the engine: MovieLens ratings parsing (u.data / ratings.csv), id
  * remapping to contiguous indices, and COO->CSR conversion.
  *
  * Lifetime model: nmio_parse returns an opaque handle; the caller copies

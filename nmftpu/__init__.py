@@ -1,4 +1,4 @@
-"""nmftpu — TPU-native non-negative matrix factorization recommender-embedding engine.
+"""nmftpu — non-negative matrix factorization recommender-embedding engine in JAX.
 
 A brand-new JAX/XLA/Pallas implementation with the capabilities of the
 ``razorx89/nmfgpu`` CUDA library (see SURVEY.md for the reference analysis;
@@ -14,7 +14,7 @@ SURVEY.md §2 are cited instead of reference file:line):
 * multi-run restarts, threshold convergence without host
   round-trips (``lax.while_loop`` carry)               (SURVEY.md C2, C9)
 * 2-D (users, items) device-mesh sharding with GSPMD
-  collectives, ring-SpMM over ICI                      (SURVEY.md §2.9, §5.8)
+  collectives, ring-SpMM                               (SURVEY.md §2.9, §5.8)
 * retrieval: factors as sharded embedding tables + top-k
   MIPS, recall@k evaluation                            (BASELINE.json configs)
 """

@@ -15,7 +15,7 @@ import sys
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="nmftpu",
-        description="TPU-native NMF recommender-embedding engine",
+        description="NMF recommender-embedding engine in JAX",
     )
     ap.add_argument("data", help="ratings file (u.data / ratings.csv) "
                                  "or .npy dense matrix")
@@ -39,9 +39,8 @@ def main(argv=None):
                          "precision; requires JAX_ENABLE_X64=1)")
     ap.add_argument("--v-storage", default="float32",
                     choices=["float32", "bfloat16", "int8"],
-                    help="dense-V HBM storage: bfloat16 halves / int8 "
-                         "quarters traffic (int8 also rides the MXU "
-                         "double-rate path under Frobenius)")
+                    help="dense-V device storage: bfloat16 halves / int8 "
+                         "quarters traffic")
     ap.add_argument("--strategy", default="auto",
                     choices=["auto", "densified", "ell", "scatter"],
                     help="sparse device engine (see docs/TUNING.md)")
@@ -59,7 +58,7 @@ def main(argv=None):
     import os
 
     plat = os.environ.get("NMFTPU_PLATFORM")
-    if plat:  # pin the backend past site plugins (see examples/_common.py)
+    if plat:  # pin the backend (see examples/_common.py)
         os.environ["JAX_PLATFORMS"] = plat
         import jax
 

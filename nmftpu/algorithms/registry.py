@@ -37,15 +37,13 @@ def build_dense_update(config: NmfConfig):
 
     if (config.v_storage == "int8" and alg is not Algorithm.MU
             and obj is Objective.FROBENIUS):
-        # int8 x int8 MXU path for the ALS/ACLS/AHCLS/GDCLS/nsNMF family
+        # int8 x int8 dots for the ALS/ACLS/AHCLS/GDCLS/nsNMF family
         # under Frobenius (nsNMF-KL routes through the quantized-KL branch
         # below); config validation guarantees no confidence weighting
         # here. V is quantized once into aux; the O(nmr) right-hand-side
-        # contractions ride the double-rate int8 MXU (the r x r solves and
-        # MU denominators stay exact f32). The int8 contraction itself is
-        # exact integer math on every backend, so no CPU fallback is
-        # needed (unlike the Pallas paths).
-        from nmftpu.kernels import quantized as Q
+        # contractions run int8 x int8 -> int32 (the r x r solves and MU
+        # denominators stay exact f32). The int8 contraction is exact
+        # integer math on every platform.
 
         def effective_h(aux, H):
             return H
@@ -56,7 +54,7 @@ def build_dense_update(config: NmfConfig):
             sw, sh, ow, oh = _als_family_shifts(config)
 
             def make_aux(V):
-                return Q.quantize_v(V)
+                return D.quantize_v(V)
 
             def update(V, aux, W, H):
                 return D.als_family_update_int8x8(
@@ -68,7 +66,7 @@ def build_dense_update(config: NmfConfig):
             lt = config.lambda_tik
 
             def make_aux(V):
-                return Q.quantize_v(V)
+                return D.quantize_v(V)
 
             def update(V, aux, W, H):
                 return D.gdcls_update_int8x8(
@@ -81,7 +79,7 @@ def build_dense_update(config: NmfConfig):
             rank = config.rank
 
             def make_aux(V):
-                Vq, scale = Q.quantize_v(V)
+                Vq, scale = D.quantize_v(V)
                 S = D.nsnmf_smoothing_matrix(rank, theta,
                                              dtype=jnp.float32)
                 return (Vq, scale, S)
@@ -105,7 +103,7 @@ def build_dense_update(config: NmfConfig):
         # knob was silently ignored on these algorithms. The densified
         # module's family updates take any dense low-precision V — the
         # O(nmr) right-hand sides (_big_vht/_big_wtv) read half the V
-        # traffic and contract bf16 x bf16 -> f32 on the MXU; r x r
+        # traffic and contract bf16 x bf16 -> f32; r x r
         # solves stay exact f32.
         from nmftpu import densified as DFB
 
@@ -170,10 +168,9 @@ def build_dense_update(config: NmfConfig):
                 from nmftpu import densified as DFW
 
                 if config.v_storage == "int8":
-                    from nmftpu.kernels import quantized as Q
 
                     def make_aux(V):
-                        return Q.quantize_v(V)
+                        return D.quantize_v(V)
 
                     def update(V, aux, W, H):
                         return DFW.mu_update_frobenius_weighted_densified(
@@ -199,60 +196,19 @@ def build_dense_update(config: NmfConfig):
                         V, aux[0], W, H, eps=eps, order=order
                     )
 
-        elif (obj is Objective.FROBENIUS and config.v_storage == "int8"
-              and (not config.use_pallas or order == "jacobi")):
-            # int8 x int8 MXU path (the library's fastest dense update —
-            # beats the XLA f32 anchor 1.67x on v5e, PERF.md round 2):
-            # V held once as int8 + scale, factor operands re-quantized
-            # per half-step, contractions on the double-rate int8 MXU.
-            import jax as _jax
-
-            from nmftpu.kernels import quantized as Q
-
-            if _jax.default_backend() == "tpu":
-
-                def make_aux(V):
-                    return Q.quantize_v(V)
-
-                # use_pallas + jacobi opts into the fused
-                # dual-numerator kernel (kernels/dual_numer.py)
-                fused = config.use_pallas and order == "jacobi"
-
-                def update(V, aux, W, H):
-                    return D.mu_update_frobenius_int8x8(
-                        aux[0], aux[1], W, H, eps=eps, order=order,
-                        use_fused=fused,
-                    )
-            else:
-                # CPU/GPU backends lack a reliable int8 MXU analog:
-                # dequantized bf16 contraction keeps semantics (tests)
-                def make_aux(V):
-                    return Q.quantize_v(V)
-
-                def update(V, aux, W, H):
-                    Vb = aux[0].astype(jnp.bfloat16) * aux[1].astype(
-                        jnp.bfloat16
-                    )
-                    return D.mu_update_frobenius_bf16v(
-                        Vb, W, H, eps=eps, order=order
-                    )
-
         elif obj is Objective.FROBENIUS and config.v_storage == "int8":
-            # Quantized fused-Pallas path (nmftpu.kernels.quantized): V is
-            # held once as int8 + scale; interpret-mode off-TPU.
-            import jax as _jax
-
-            from nmftpu.kernels import quantized as Q
-
-            interp = _jax.default_backend() != "tpu"
-
+            # V held once as int8 + scale, dequantized to bf16 for a
+            # bf16 x bf16 -> f32 contraction: faster on the H100 than
+            # XLA's int8 x int8 -> int32 dot (PERF.md)
             def make_aux(V):
-                return Q.quantize_v(V)
+                return D.quantize_v(V)
 
             def update(V, aux, W, H):
-                return Q.mu_update_frobenius_q(
-                    aux[0], aux[1], W, H, eps=eps, order=order,
-                    interpret=interp,
+                Vb = aux[0].astype(jnp.bfloat16) * aux[1].astype(
+                    jnp.bfloat16
+                )
+                return D.mu_update_frobenius_bf16v(
+                    Vb, W, H, eps=eps, order=order
                 )
 
         elif obj is Objective.FROBENIUS and config.v_storage == "bfloat16":
@@ -263,24 +219,6 @@ def build_dense_update(config: NmfConfig):
             def update(V, aux, W, H):
                 return D.mu_update_frobenius_bf16v(
                     aux[0], W, H, eps=eps, order=order
-                )
-
-        elif obj is Objective.FROBENIUS and config.use_pallas:
-            # Explicit opt-in: fused Pallas half-steps (see PERF.md — XLA's
-            # GEMM currently wins at these shapes; kept for r>=512 regimes
-            # and as the base of the quantized path).
-            import jax as _jax
-
-            from nmftpu.kernels import dense_mu as K
-
-            interp = _jax.default_backend() != "tpu"
-
-            def make_aux(V):
-                return ()
-
-            def update(V, aux, W, H):
-                return K.mu_update_frobenius_fused(
-                    V, W, H, eps=eps, order=order, interpret=interp
                 )
 
         elif obj is Objective.FROBENIUS:
@@ -306,12 +244,11 @@ def build_dense_update(config: NmfConfig):
             # linearly, so the symmetric scale folds in after the
             # blockwise contraction (same contract as quantized KL).
             from nmftpu import densified as DF
-            from nmftpu.kernels import quantized as Q
 
             beta = config.beta
 
             def make_aux(V):
-                return Q.quantize_v(V)
+                return D.quantize_v(V)
 
             def update(V, aux, W, H):
                 return DF.mu_update_beta_densified(
@@ -339,10 +276,9 @@ def build_dense_update(config: NmfConfig):
             # (exact — see _kl_numer_w_blocked). Zeros quantize to zeros,
             # so the KL support pattern is preserved.
             from nmftpu import densified as DF
-            from nmftpu.kernels import quantized as Q
 
             def make_aux(V):
-                return Q.quantize_v(V)
+                return D.quantize_v(V)
 
             def update(V, aux, W, H):
                 return DF.mu_update_kl_densified(
@@ -465,13 +401,12 @@ def build_dense_update(config: NmfConfig):
             from nmftpu import densified as DF
 
             if config.v_storage == "int8":
-                from nmftpu.kernels import quantized as Q
 
                 def make_aux(V):
                     S = D.nsnmf_smoothing_matrix(
                         rank, theta, dtype=jnp.float32
                     )
-                    return (S,) + tuple(Q.quantize_v(V))
+                    return (S,) + tuple(D.quantize_v(V))
 
                 def update(V, aux, W, H):
                     return DF.nsnmf_update_kl_densified(

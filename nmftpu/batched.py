@@ -3,11 +3,11 @@ compiled program.
 
 Production recommenders routinely fit one small model per segment
 (per region, per category, per tenant); issuing B separate device
-programs wastes the MXU on launch gaps and leaves it under-tiled at
+programs wastes the device on launch gaps and leaves it under-tiled at
 small (n, m). Here the whole stack runs as `vmap` over the SAME
 on-device while-loop the single-problem driver uses (nmftpu.loop) —
 XLA batches every GEMM to (B, n, r) x (B, r, m) contractions that tile
-the MXU properly, and the host dispatches once.
+the tensor cores properly, and the host dispatches once.
 
 Semantics: problem i runs the same update loop as `compute`, seeded
 with `fold_in(PRNGKey(seed), i)` — the SAME key rule the solo driver
@@ -16,9 +16,9 @@ uses for its i-th restart. So problem 0 is bit-equal to a plain
 solo run warm-started from `initialize_factors(Vs[i], ...,
 fold_in(key, i))` (asserted in tests/test_batched.py); a naive
 `compute(Vs[i], config)` differs for i>0 only in the random init draw.
-The batching win is a TPU property (dispatch gaps + MXU tiling at
-small n/m); on CPU, B cached solo calls can be faster — measure before
-batching there. Early-stop thresholds are rejected: under vmap
+The batching win is an accelerator property (dispatch gaps and GEMM
+tiling at small n/m); on CPU, B cached solo calls can be faster —
+measure before batching there. Early-stop thresholds are rejected: under vmap
 a while-loop runs until EVERY problem's predicate clears, so per-
 problem stopping would silently over-iterate converged problems; run
 fixed budgets (threshold_value=0) — the normal setting for sweeps.

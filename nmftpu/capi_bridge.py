@@ -16,8 +16,8 @@ import numpy as np
 def initialize() -> int:
     import os
 
-    # NMFTPU_PLATFORM pins the backend even where a site plugin pre-empts
-    # JAX_PLATFORMS (same escape hatch as the examples/scripts).
+    # NMFTPU_PLATFORM pins the backend (e.g. cpu on a machine with a
+    # GPU), the same switch as the examples.
     plat = os.environ.get("NMFTPU_PLATFORM")
     if plat:
         os.environ["JAX_PLATFORMS"] = plat

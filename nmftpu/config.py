@@ -125,12 +125,13 @@ class NmfConfig:
     # Numerics. `eps` guards the multiplicative-update denominators.
     # `dtype` is the factor/compute dtype; `v_storage` separately controls
     # V's on-device storage (accumulations always run at >= f32).
-    # `v_storage` controls how dense V is held in HBM for the update loop:
+    # `v_storage` controls how dense V is held in device memory for the
+    # update loop:
     #   float32  — exact storage (default);
-    #   bfloat16 — halves V traffic; MXU-native;
-    #   int8     — quarter traffic via per-matrix-scale quantization AND,
-    #              under Frobenius, the MXU's double-rate int8 path (any
-    #              algorithm); under KL (MU/nsNMF) the scale folds into
+    #   bfloat16 — halves V traffic; bf16 x bf16 -> f32 contractions;
+    #   int8     — quarter traffic via per-matrix-scale quantization;
+    #              under Frobenius the dense MU dequantizes to bf16 and
+    #              the ALS family contracts int8 x int8; under KL (MU/nsNMF) the scale folds into
     #              the blockwise bf16-GEMM numerators; under confidence
     #              weighting C = 1 + α·scale·Vq is rebuilt per panel.
     #              Dense + densified engines.
@@ -183,8 +184,7 @@ class NmfConfig:
 
     # Per-row solver for the weighted/masked ALS normal equations
     # (iALS / completion ALS). "exact" = batched Cholesky (the oracle;
-    # XLA's batched factorization is sequential and costs ~1.4 s at
-    # (138k, 64, 64) on a v5e — receipts in PERF.md round 3). "cg" =
+    # a batched factorization is sequential over its steps). "cg" =
     # warm-started Jacobi-preconditioned conjugate gradient, restarted
     # from the previous factors each outer iteration (Takács & Pilászy
     # 2011's ALS-CG): each step is one batched (n, r, r) matvec —
@@ -196,12 +196,6 @@ class NmfConfig:
 
     # k-means init (SURVEY.md C8, §3.4).
     kmeans_max_iter: int = 25
-
-    # Kernel selection: None/False = XLA formulations (the
-    # measured-fastest paths, PERF.md); True = opt into the Pallas
-    # kernels — the dense fused MU half-steps, and on strategy="ell"
-    # the fused ELL SpMM (kernels/sparse_ell_kernel.py).
-    use_pallas: bool | None = None
 
     # Verbosity (reference C17, levels 0-3): 0 silent; 1 per-run summary
     # lines; 2 additionally per-convergence-check lines; 3 per-check
@@ -231,7 +225,7 @@ class NmfConfig:
                 object.__setattr__(self, field, enum_cls(v))
         # Canonicalize the dtype name so aliases ("double", "f8",
         # np.float64) cannot bypass the string-compared dtype rules
-        # (f64 engine routing, the use_pallas guard, plan dtype keys).
+        # (f64 engine routing, plan dtype keys).
         import jax.numpy as _jnp
 
         object.__setattr__(self, "dtype", _jnp.dtype(self.dtype).name)
@@ -322,17 +316,6 @@ class NmfConfig:
                     "mu_style='jacobi' supports the Frobenius and KL "
                     f"objectives only; got {self.objective}"
                 )
-            if self.use_pallas and not (
-                self.objective is Objective.FROBENIUS
-                and self.v_storage == "int8"
-            ):
-                raise ValueError(
-                    "mu_style='jacobi' + use_pallas selects the fused "
-                    "dual-numerator kernel, which exists only for the "
-                    "int8-stored Frobenius path (v_storage='int8'); "
-                    "other combinations run the XLA path "
-                    "(use_pallas=False)"
-                )
             if self.alpha_confidence > 0.0 or self.mask == "observed":
                 raise ValueError(
                     "mu_style='jacobi' does not support confidence "
@@ -345,18 +328,6 @@ class NmfConfig:
                     f"algorithm only (sklearn solver='mu'); got "
                     f"{self.algorithm}"
                 )
-            if self.use_pallas:
-                raise ValueError(
-                    "use_pallas has no beta-divergence kernels; use the "
-                    "XLA path (use_pallas=False) for objective="
-                    "'beta-divergence'"
-                )
-        if self.use_pallas and self.dtype == "float64":
-            raise ValueError(
-                "use_pallas=True cannot honor dtype='float64': the "
-                "Pallas kernels compute in bf16/f32 on the MXU; use the "
-                "XLA paths (use_pallas=False) for double precision"
-            )
         if self.alpha_confidence > 0.0 and (
             self.algorithm not in (Algorithm.MU, Algorithm.ALS)
             or self.objective is not Objective.FROBENIUS
@@ -452,8 +423,8 @@ def resolve_dtype(name: str):
     (every update rule is dtype-generic) but requires JAX x64 mode —
     without it JAX SILENTLY truncates to float32, which would turn the
     reference's double-precision contract into a quiet downgrade, so we
-    raise instead. On TPU, float64 is software-emulated and slow; it is
-    intended for CPU verification runs and accuracy studies.
+    raise instead. On the GPU float64 runs far below the float32 rate;
+    it is intended for CPU verification runs and accuracy studies.
     """
     import jax
     import jax.numpy as jnp

@@ -1,15 +1,18 @@
 """Densified-bf16 sparse strategy.
 
-On TPU, gather/scatter SpMM pays ~10× over dense MXU work, so whenever the
-interaction matrix fits HBM as bfloat16 (ML-20M is 7.5 GB on a 16 GB v5e),
-the fastest "sparse" engine is: scatter the nonzeros into a dense bf16 V
-ONCE, then run dense MXU updates — computing the zeros is cheaper than
-gathering around them. The Frobenius objective is unchanged (it is defined
-over all nm entries); KL runs blockwise over row panels so the dense ratio
-matrix V/(WH) never materializes at full size.
+Gather/scatter SpMM runs far below dense GEMM rates, so whenever the
+interaction matrix fits device memory as bfloat16 (ML-20M is 7.4 GB),
+the "sparse" engine can be: scatter the nonzeros into a dense bf16 V
+ONCE, then run dense GEMM updates — computing the zeros instead of
+gathering around them. `sparse_ops.densify_budget_bytes()` decides
+how large a matrix may be densified. The Frobenius objective is
+unchanged (it is defined over all nm entries); KL runs blockwise over
+row panels so the dense ratio matrix V/(WH) never materializes at full
+size.
 
 The chunked scan+scatter path (nmftpu.sparse_ops) remains the fallback for
-matrices beyond HBM and for the per-device tiles of the sharded engine.
+matrices beyond that budget and for the per-device tiles of the sharded
+engine.
 """
 
 from __future__ import annotations
@@ -50,9 +53,8 @@ def densify_quantized(coo: DeviceCOO, row_multiple: int = 1,
                       clip: float = 127.0):
     """Scatter the padded COO into a dense int8 array with one symmetric
     per-matrix scale: V ~= scale * Vq. Same padding contract as
-    `densify`. The int8 matrix is half the bf16 footprint AND feeds the
-    MXU's double-rate int8 path (`mu_update_frobenius_int8x8`) — the
-    fastest in-HBM engine for rating/count data (PERF.md round 2).
+    `densify`. The int8 matrix is half the bf16 footprint and feeds the
+    int8 x int8 contractions (`mu_update_frobenius_int8x8`).
 
     Per-entry quantization error <= scale/2 (<=0.4% of the matrix max);
     exact when values lie on a <=255-level uniform grid. Duplicate
@@ -106,7 +108,7 @@ def frobenius_error_int8_densified(Vq, scale, W, H, sum_v_sq,
     if tail:  # remainder panel — still panel-sized, never full-matrix
         WtV = panel(nb * block_rows, tail, WtV)
     cross = scale * jnp.sum(WtV * H)
-    quad = jnp.sum((W.T @ W) * (H @ H.T))
+    quad = jnp.sum(D.gram_cols(W) * D.gram_rows(H))
     return jnp.sqrt(jnp.maximum(sum_v_sq - 2.0 * cross + quad, 0.0))
 
 
@@ -401,11 +403,11 @@ def mu_update_kl_densified(
 
     Per half-step one pass over V: for each row panel, WH = W_blk @ H and
     the ratio V/(WH) live only at panel size; numerators accumulate into
-    (n, r) / (r, m). FLOPs 2×O(nmr) per half-step — MXU-bound, versus the
+    (n, r) / (r, m). FLOPs 2×O(nmr) per half-step — GEMM-bound, versus the
     gather-bound scatter path. With `scale` (int8-stored V = scale * Vd)
     the scalar folds into the numerator after the contraction — this is
     also the dense `v_storage` KL path (registry routes bf16/int8 dense
-    KL here: bounded intermediates + bf16 MXU GEMMs instead of the f32
+    KL here: bounded intermediates + bf16 GEMMs instead of the f32
     full-materialization update).
     """
 
@@ -472,7 +474,7 @@ def nsnmf_update_kl_densified(
 
 
 def _big_vht(Vd, H):
-    """V·Hᵀ (n, r) with bf16 V on the MXU."""
+    """V·Hᵀ (n, r) with bf16 V."""
     return jax.lax.dot_general(
         Vd.astype(jnp.bfloat16), jnp.asarray(H).astype(jnp.bfloat16),
         (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
@@ -480,7 +482,7 @@ def _big_vht(Vd, H):
 
 
 def _big_wtv(W, Vd):
-    """Wᵀ·V (r, m) with bf16 V on the MXU."""
+    """Wᵀ·V (r, m) with bf16 V."""
     return jax.lax.dot_general(
         jnp.asarray(W).astype(jnp.bfloat16), Vd.astype(jnp.bfloat16),
         (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32,
@@ -495,15 +497,15 @@ def als_family_update_densified(
     eps=1e-9, order="WH",
 ):
     """ALS/ACLS/AHCLS against bf16-dense V: the O(nmr) right-hand sides run
-    as bf16 MXU contractions; the r×r solves are exact f32."""
+    as bf16 contractions; the r×r solves are exact f32."""
 
     def upd_w(W, H):
         rhs = _big_vht(Vd, H).T                       # (r, n)
-        return _solve_clamped(H @ H.T, rhs, shift_w, off_w, eps).T
+        return _solve_clamped(D.gram_rows(H), rhs, shift_w, off_w, eps).T
 
     def upd_h(W, H):
         rhs = _big_wtv(W, Vd)                         # (r, m)
-        return _solve_clamped(W.T @ W, rhs, shift_h, off_h, eps)
+        return _solve_clamped(D.gram_cols(W), rhs, shift_h, off_h, eps)
 
     if order == "WH":
         W = upd_w(W, H)
@@ -516,10 +518,10 @@ def als_family_update_densified(
 
 def gdcls_update_densified(Vd, W, H, lambda_tik=0.0, eps=1e-9, order="WH"):
     def upd_w(W, H):
-        return W * (_big_vht(Vd, H) / (W @ (H @ H.T) + eps))
+        return W * (_big_vht(Vd, H) / (W @ D.gram_rows(H) + eps))
 
     def upd_h(W, H):
-        return _solve_clamped(W.T @ W, _big_wtv(W, Vd), lambda_tik, 0.0,
+        return _solve_clamped(D.gram_cols(W), _big_wtv(W, Vd), lambda_tik, 0.0,
                               eps)
 
     if order == "WH":
@@ -536,11 +538,11 @@ def nsnmf_update_densified(Vd, W, H, S, eps=1e-9, order="WH"):
 
     def upd_w(W, H):
         SH = S @ H
-        return W * (_big_vht(Vd, SH) / (W @ (SH @ SH.T) + eps))
+        return W * (_big_vht(Vd, SH) / (W @ D.gram_rows(SH) + eps))
 
     def upd_h(W, H):
         WS = W @ S
-        return H * (_big_wtv(WS, Vd) / ((WS.T @ WS) @ H + eps))
+        return H * (_big_wtv(WS, Vd) / (D.gram_cols(WS) @ H + eps))
 
     if order == "WH":
         W = upd_w(W, H)
@@ -668,7 +670,7 @@ def frobenius_error_densified(Vd, W, H, sum_v_sq):
         preferred_element_type=jnp.float32,
     )
     cross = jnp.sum(WtV * H)
-    quad = jnp.sum((W.T @ W) * (H @ H.T))
+    quad = jnp.sum(D.gram_cols(W) * D.gram_rows(H))
     return jnp.sqrt(jnp.maximum(sum_v_sq - 2.0 * cross + quad, 0.0))
 
 

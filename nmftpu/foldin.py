@@ -10,9 +10,9 @@ item table. The semantics match sklearn's ``NMF.transform`` (MU with
 ``update_H=False``, ``sklearn/decomposition/_nmf.py:532`` — the oracle for
 the parity tests).
 
-TPU shape of the problem: with H fixed, the MU-Frobenius numerator
+Shape of the problem: with H fixed, the MU-Frobenius numerator
 ``V Hᵀ`` and the Gram ``H Hᵀ`` are loop-invariant — both are hoisted and
-the iteration body is two tiny ``(b,r)×(r,r)`` MXU GEMMs. Sparse inputs
+the iteration body is two tiny ``(b,r)×(r,r)`` GEMMs. Sparse inputs
 never materialize dense rows OR a full table read: numerators touch only
 the gathered columns ``Ht[cols]`` (at a 10M-item table that is the
 difference between kilobytes and a 10 GB read per fold-in).
@@ -36,6 +36,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from nmftpu.linalg.dense import gram_cols
 from nmftpu.sparse import SparseMatrix
 
 
@@ -86,7 +87,7 @@ def prepare_table(H, scale=None) -> PreparedTable:
     H = jnp.asarray(H)
     if H.ndim != 2:
         raise ValueError(f"H must be (rank, n_items), got shape {H.shape}")
-    Ht = H.T  # (m, r): row-gathers on the sublane axis (PERF.md round 2)
+    Ht = H.T  # (m, r): gathers whole rows
 
     def fold(G, h_sum, sc):
         sc = jnp.asarray(sc, jnp.float32)
@@ -216,7 +217,7 @@ def _fro_error_sparse(vals, rows, Hc, W, G, sum_v_sq):
     """‖V−WH‖ via ⟨V,WH⟩ sampled at nonzeros + tr((WᵀW)(HHᵀ))."""
     pred = jnp.sum(W[rows] * Hc, axis=1)
     cross = jnp.sum(vals * pred)
-    wtw = W.T @ W
+    wtw = gram_cols(W)
     sq = sum_v_sq - 2.0 * cross + jnp.sum(wtw * G)
     return jnp.sqrt(jnp.maximum(sq, 0.0))
 
@@ -362,7 +363,7 @@ def transform(
             if not sparse_in:
                 H32 = Ht.T.astype(dtype)
                 C = 1.0 + alpha_confidence * V
-                # per-user Gram Hᵀ diag(C_u) H, batched on the MXU
+                # per-user Gram Hᵀ diag(C_u) H, batched
                 Gb = jnp.einsum("rm,um,sm->urs", H32, C, H32)
                 rhs = (C * V) @ H32.T  # (b, r)
             else:

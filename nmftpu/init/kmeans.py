@@ -1,9 +1,9 @@
 """Jitted Lloyd's k-means over the columns of V (SURVEY.md C8, §3.4).
 
 The reference runs GPU k-means to seed W: columns of V (each an n-vector)
-are clustered into `rank` groups and W's columns become the centroids. On
-TPU the assignment step is a (m, r) distance argmin driven by a V^T C
-matmul (MXU) and the centroid update is a one-hot matmul (a dense
+are clustered into `rank` groups and W's columns become the centroids.
+Here the assignment step is a (m, r) distance argmin driven by a V^T C
+matmul and the centroid update is a one-hot matmul (a dense
 segment-sum that XLA maps well), so the whole loop jits into a
 `lax.fori_loop` with no host round-trips.
 """
@@ -35,7 +35,7 @@ def kmeans_columns(V, rank: int, key, max_iter: int = 25):
     def assign(centroids):
         # dist^2(j, k) = ||v_j||^2 - 2 v_j.c_k + ||c_k||^2 ; the argmin over
         # k drops the ||v_j||^2 term but we keep it for a true distance.
-        cross = V.T @ centroids                           # (m, r) — MXU
+        cross = V.T @ centroids                           # (m, r)
         cent_sq = jnp.sum(centroids * centroids, axis=0)  # (r,)
         d2 = col_sq[:, None] - 2.0 * cross + cent_sq[None, :]
         return jnp.argmin(d2, axis=1)                     # (m,)

@@ -1,29 +1,8 @@
-"""Pallas TPU kernels (SURVEY.md C13/§7-PR2): the hot-path compute rebuilt
-as Mosaic-compiled kernels rather than translated CUDA.
+"""Hand-written kernels, each beside the plain jnp form it must beat.
 
-* dense_mu — fused MU half-steps: the O(nmr) numerator GEMM, the Gram
-  application, and the multiply/divide-epsilon epilogue in ONE kernel, so
-  the (r, m)/(n, r) numerator and denominator intermediates never touch
-  HBM. The standalone fused multiply-divide kernel covers the reference's
-  elementwise update kernel 1:1.
-* Kernels are validated against the pure-jnp linalg layer with
-  `interpret=True` on CPU (SURVEY.md §4.1) and selected at runtime only on
-  TPU backends.
-* quantized — int8-stored-V fused updates (quantize_v + the dequantizing
-  MU path).
-* sparse_ell_kernel — the fused ELL SpMM (in-kernel gather · multiply ·
-  segment-reduce; the reference's cuSPARSE csrmm analog), opt-in via
-  `use_pallas=True` on the ELL engine.
+* mips_reservoir — the top-2-per-slot reservoir scan for serving, as a
+  Pallas kernel through Triton and as plain blocked XLA GEMMs.
+
+`nmftpu.backend` decides which form runs; the kernel is tested against
+the plain form in the Pallas interpreter on the CPU.
 """
-
-from nmftpu.kernels import dense_mu
-
-__all__ = ["dense_mu", "quantized", "sparse_ell_kernel"]
-
-
-def __getattr__(name):
-    if name in ("quantized", "sparse_ell_kernel"):
-        import importlib
-
-        return importlib.import_module(f"nmftpu.kernels.{name}")
-    raise AttributeError(name)

@@ -2,8 +2,8 @@
 every update rule and error metric (SURVEY.md L1/C3–C7, C9, C13, C14).
 
 These functions are shape-polymorphic, jit-friendly, and used three ways:
-1. directly, on CPU/TPU, as the default compute path;
-2. as the oracle the Pallas kernels (`nmftpu.kernels`) are tested against;
+1. directly, on the CPU and the GPU, as the default compute path;
+2. as the oracle the engines and kernels are tested against;
 3. as the per-shard local math inside `shard_map`-based sharded updates.
 """
 

@@ -7,12 +7,19 @@ W : (n, r)  left factor  (user embeddings)
 H : (r, m)  right factor (item embeddings)
 
 All updates return new arrays (functional; no in-place mutation) and are
-designed so XLA keeps every matmul on the MXU: the dominant products are
+designed so XLA keeps every matmul a large GEMM: the dominant products are
 W^T V (r x m), V H^T (n x r) at O(nmr) FLOPs, plus tiny r x r Grams. The
-epsilon guard is *added* to denominators (cheap and branch-free on the VPU;
-the sklearn oracle instead replaces exact zeros — equivalent to tolerance
+epsilon guard is *added* to denominators (cheap and branch-free; the
+sklearn oracle instead replaces exact zeros — equivalent to tolerance
 for positive factors, covered by the parity tests in
 tests/test_sklearn_parity.py).
+
+Precision policy (docs/ARCHITECTURE.md): a float32 product may run in
+TF32 on the GPU unless a precision is asked for. The O(nmr) numerators
+keep the default. The O((n+m) r^2) Gram builds (`gram_rows`,
+`gram_cols`), the HALS sweeps and the error checks' contractions ask
+for HIGHEST: they feed solves, sequential sweeps and convergence
+thresholds, and cost little next to the numerators.
 
 Reference behavior being reproduced: SURVEY.md C3 (MU Frobenius/KL),
 C4 (ALS), C5 (ACLS/AHCLS), C6 (GDCLS), C7 (nsNMF), C9 (error metrics),
@@ -26,6 +33,21 @@ import jax.numpy as jnp
 from jax import lax
 
 
+HIGHEST = lax.Precision.HIGHEST
+
+
+def gram_rows(X):
+    """X Xᵀ at full float32 precision (the r x r Gram of an (r, m)
+    factor)."""
+    return jnp.matmul(X, X.T, precision=HIGHEST)
+
+
+def gram_cols(X):
+    """Xᵀ X at full float32 precision (the r x r Gram of an (n, r)
+    factor)."""
+    return jnp.matmul(X.T, X, precision=HIGHEST)
+
+
 # ---------------------------------------------------------------------------
 # Multiplicative updates (SURVEY.md C3)
 # ---------------------------------------------------------------------------
@@ -33,8 +55,8 @@ from jax import lax
 
 def mu_update_w_frobenius(V, W, H, eps):
     """W <- W * (V H^T) / (W (H H^T) + eps).   One Lee–Seung half-step."""
-    numer = V @ H.T                      # (n, r)   O(nmr) — MXU
-    HHt = H @ H.T                        # (r, r)   O(mr^2)
+    numer = V @ H.T                      # (n, r)   O(nmr)
+    HHt = gram_rows(H)                        # (r, r)   O(mr^2)
     denom = W @ HHt + eps                # (n, r)   O(nr^2)
     return W * (numer / denom)
 
@@ -42,7 +64,7 @@ def mu_update_w_frobenius(V, W, H, eps):
 def mu_update_h_frobenius(V, W, H, eps):
     """H <- H * (W^T V) / ((W^T W) H + eps)."""
     numer = W.T @ V                      # (r, m)
-    WtW = W.T @ W                        # (r, r)
+    WtW = gram_cols(W)                        # (r, r)
     denom = WtW @ H + eps                # (r, m)
     return H * (numer / denom)
 
@@ -98,7 +120,7 @@ def mu_update_frobenius(V, W, H, eps=1e-9, order="WH"):
     """
     if order == "jacobi":
         return _jacobi_fro_apply(
-            W, H, V @ H.T, W.T @ V, W.T @ W, H @ H.T, eps,
+            W, H, V @ H.T, W.T @ V, gram_cols(W), gram_rows(H), eps,
         )
     return _apply_order(
         lambda W, H: mu_update_w_frobenius(V, W, H, eps),
@@ -203,7 +225,7 @@ def beta_w_step(V, W, H, beta, l1_w=0.0, l2_w=0.0, gamma=1.0):
     final zero-denominator replacement, the gamma exponent)."""
     if beta == 2.0:
         numer = V @ H.T
-        denom = W @ (H @ H.T)
+        denom = W @ gram_rows(H)
     else:
         WH = W @ H
         pwr_n, pwr_d = _beta_powers(WH, beta)
@@ -245,7 +267,7 @@ def beta_h_terms(V, W, H, beta):
     regularization — shared by the plain step above and the online
     accumulator step in nmftpu.minibatch."""
     if beta == 2.0:
-        return W.T @ V, (W.T @ W) @ H
+        return W.T @ V, gram_cols(W) @ H
     WH = W @ H
     pwr_n, pwr_d = _beta_powers(WH, beta)
     numer = W.T @ (pwr_n * V)
@@ -297,8 +319,8 @@ def mu_update_beta(V, W, H, beta, eps=1e-9, order="WH"):
 
 
 def mu_update_frobenius_bf16v(Vb, W, H, eps=1e-9, order="WH"):
-    """MU (Frobenius) against a bfloat16-stored V: halves the dominant HBM
-    traffic; the O(nmr) contractions run bf16 x bf16 -> f32 on the MXU and
+    """MU (Frobenius) against a bfloat16-stored V: halves the dominant
+    memory traffic; the O(nmr) contractions run bf16 x bf16 -> f32 and
     everything else stays in W/H's dtype."""
 
     def big_dot(a, b, dims):
@@ -310,16 +332,16 @@ def mu_update_frobenius_bf16v(Vb, W, H, eps=1e-9, order="WH"):
 
     def upd_w(W, H):
         numer = big_dot(Vb, H, ((1,), (1,)))       # V H^T (n, r)
-        return W * (numer / (W @ (H @ H.T) + eps))
+        return W * (numer / (W @ gram_rows(H) + eps))
 
     def upd_h(W, H):
         numer = big_dot(W, Vb, ((0,), (0,)))       # W^T V (r, m)
-        return H * (numer / ((W.T @ W) @ H + eps))
+        return H * (numer / (gram_cols(W) @ H + eps))
 
     if order == "jacobi":
         return _jacobi_fro_apply(
             W, H, big_dot(Vb, H, ((1,), (1,))),
-            big_dot(W, Vb, ((0,), (0,))), W.T @ W, H @ H.T, eps,
+            big_dot(W, Vb, ((0,), (0,))), gram_cols(W), gram_rows(H), eps,
         )
     return _apply_order(upd_w, upd_h, W, H, order)
 
@@ -331,9 +353,18 @@ def quantize_sym(X, clip=127.0):
     return scale.astype(jnp.float32), Xq
 
 
+def quantize_v(V):
+    """V -> (Vq int8, scale f32) with V ~= scale * Vq: `quantize_sym` in
+    the (data, scale) order the int8-stored-V paths carry. Exact when
+    every entry is an integer multiple of max|V|/127; otherwise off by
+    at most scale/2 per entry."""
+    scale, Vq = quantize_sym(V)
+    return Vq, scale
+
+
 def _rhs_vht_int8(Vq, scale_v, X):
     """V·Xᵀ (n, r) with int8 V: X requantized per call, int8 × int8 →
-    int32 on the MXU's double-rate path, both scales in the epilogue."""
+    int32, both scales in the epilogue."""
     s_x, Xq = quantize_sym(X)
     return jax.lax.dot_general(
         Vq, Xq, dimension_numbers=(((1,), (1,)), ((), ())),
@@ -359,7 +390,7 @@ def _ls_terms_w_int8(Vq, scale_v, H):
     (error ∝ cond(H) only). Measured: 22% → <2% H error per ALS step."""
     s_h, Hq = quantize_sym(H)
     Hd = Hq.astype(jnp.float32) * s_h
-    gram = Hd @ Hd.T
+    gram = gram_rows(Hd)
     rhs = jax.lax.dot_general(
         Hq, Vq, dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.int32,
@@ -372,7 +403,7 @@ def _ls_terms_h_int8(Vq, scale_v, W):
     gram = W̃ᵀ W̃ (r, r), rhs = W̃ᵀ Ṽ (r, m). See `_ls_terms_w_int8`."""
     s_w, Wq = quantize_sym(W)
     Wd = Wq.astype(jnp.float32) * s_w
-    gram = Wd.T @ Wd
+    gram = gram_cols(Wd)
     rhs = jax.lax.dot_general(
         Wq, Vq, dimension_numbers=(((0,), (0,)), ((), ())),
         preferred_element_type=jnp.int32,
@@ -380,53 +411,28 @@ def _ls_terms_h_int8(Vq, scale_v, W):
     return gram, rhs
 
 
-def mu_update_frobenius_int8x8(Vq, scale_v, W, H, eps=1e-9, order="WH",
-                               use_fused=False):
-    """MU (Frobenius) with the O(nmr) contractions as int8 x int8 -> int32
-    on the MXU's double-rate int8 path: V is stored int8 once; the factor
-    operand of each big GEMM is re-quantized per half-step (cheap VPU) and
-    both scales fold into the epilogue. Measured 64 us/iter at
-    4096^2/r=256 on v5e vs the 105-107 us f32-anchor — the first library
-    path to BEAT the XLA anchor (round-1 verdict item 2). Quantization:
-    per-entry relative error <= 0.4% on each operand; converged
-    reconstruction error matched f32 to 5 significant digits over 50
-    iterations (PERF.md round 2). Non-TPU backends may lack an int8 MXU
-    path; the registry gates this to TPU."""
+def mu_update_frobenius_int8x8(Vq, scale_v, W, H, eps=1e-9, order="WH"):
+    """MU (Frobenius) with the O(nmr) contractions as int8 x int8 -> int32:
+    V is stored int8 once; the factor operand of each big GEMM is
+    re-quantized per half-step and both scales fold into the epilogue.
+    Quantization: per-entry relative error <= 0.4% on each operand. The
+    dense engine's int8 route dequantizes to bf16 instead, which was
+    faster on the H100 (PERF.md); the densified engine calls this."""
     Vq = jnp.asarray(Vq)
 
     def upd_w(W, H):
         numer = _rhs_vht_int8(Vq, scale_v, H)
-        return W * (numer / (W @ (H @ H.T) + eps))
+        return W * (numer / (W @ gram_rows(H) + eps))
 
     def upd_h(W, H):
         numer = _rhs_wtv_int8(Vq, scale_v, W)
-        return H * (numer / ((W.T @ W) @ H + eps))
+        return H * (numer / (gram_cols(W) @ H + eps))
 
     if order == "jacobi":
-        numer_w = numer_h = None
-        n, m = Vq.shape
-        r = W.shape[1]
-        bn = bm = 1024  # the measured-fastest schedule (PERF round 5)
-        # OPT-IN fused dual-numerator kernel (kernels/dual_numer.py):
-        # one V read for both numerators, 405 TOP/s standalone — but
-        # the END-TO-END jacobi step measures SLOWER than the XLA
-        # numerators (the opaque kernel boundary forfeits XLA's
-        # epilogue fusion and overlap; receipts in PERF round 5), so
-        # the default stays XLA and the kernel requires use_pallas
-        vmem_bytes = (2 * bn * bm + r * n + 4 * r * m + 4 * bn * r
-                      + r * bm)
-        from nmftpu.kernels import dual_numer as DN
-
-        if (use_fused and DN.available()
-                and m % bm == 0 and n % bn == 0 and r % 128 == 0
-                and vmem_bytes <= 100_000_000):
-            numer_w, numer_h = DN.dual_numerators_int8(
-                Vq, scale_v, W, H, bn=bn, bm=bm)
-        else:
-            numer_w = _rhs_vht_int8(Vq, scale_v, H)
-            numer_h = _rhs_wtv_int8(Vq, scale_v, W)
         return _jacobi_fro_apply(
-            W, H, numer_w, numer_h, W.T @ W, H @ H.T, eps,
+            W, H, _rhs_vht_int8(Vq, scale_v, H),
+            _rhs_wtv_int8(Vq, scale_v, W), gram_cols(W), gram_rows(H),
+            eps,
         )
     return _apply_order(upd_w, upd_h, W, H, order)
 
@@ -435,8 +441,8 @@ def als_family_update_int8x8(
     Vq, scale_v, W, H, shift_w=0.0, shift_h=0.0, off_w=0.0, off_h=0.0,
     eps=1e-9, order="WH",
 ):
-    """ALS/ACLS/AHCLS with the O(nmr) right-hand sides on the int8 MXU
-    path (V stored int8 + scale; same quantization contract as
+    """ALS/ACLS/AHCLS with the O(nmr) right-hand sides as int8 dots
+    (V stored int8 + scale; same quantization contract as
     `mu_update_frobenius_int8x8`). Each half-step quantizes its factor
     operand ONCE and builds BOTH the Gram and the rhs from it
     (`_ls_terms_*_int8`) — the r×r solve is then the exact f32 solution
@@ -473,14 +479,14 @@ def als_family_update_int8x8(
 def gdcls_update_int8x8(Vq, scale_v, W, H, lambda_tik=0.0, eps=1e-9,
                         order="WH"):
     """GDCLS with int8-stored V: MU-style W step and Tikhonov H solve,
-    both rhs contractions on the int8 MXU path. The H solve uses the
+    both rhs contractions as int8 dots. The H solve uses the
     consistent quantized Gram (see `als_family_update_int8x8`)."""
     Vq = jnp.asarray(Vq)
     r = W.shape[1]
 
     def upd_w(W, H):
         numer = _rhs_vht_int8(Vq, scale_v, H)
-        return W * (numer / (W @ (H @ H.T) + eps))
+        return W * (numer / (W @ gram_rows(H) + eps))
 
     def upd_h(W, H):
         gram, rhs = _ls_terms_h_int8(Vq, scale_v, W)
@@ -507,12 +513,12 @@ def nsnmf_update_frobenius_int8x8(Vq, scale_v, W, H, S, eps=1e-9,
     def upd_w(W, H):
         SH = S @ H
         numer = _rhs_vht_int8(Vq, scale_v, SH)
-        return W * (numer / (W @ (SH @ SH.T) + eps))
+        return W * (numer / (W @ gram_rows(SH) + eps))
 
     def upd_h(W, H):
         WS = W @ S
         numer = _rhs_wtv_int8(Vq, scale_v, WS)
-        return H * (numer / ((WS.T @ WS) @ H + eps))
+        return H * (numer / (gram_cols(WS) @ H + eps))
 
     if order == "WH":
         W = upd_w(W, H)
@@ -560,23 +566,21 @@ def mu_update_frobenius_weighted(V, C, W, H, eps=1e-9, order="WH"):
 
 
 def spd_solve(A, rhs):
-    """Solve A X = rhs for SPD r×r A, TPU-shaped (SURVEY.md C14).
+    """Solve A X = rhs for SPD r×r A (SURVEY.md C14).
 
-    XLA lowers `triangular_solve` to a SEQUENTIAL blocked substitution on
-    TPU, so `solve(assume_a="pos")` against a wide (r, n) rhs costs ~90 µs
-    at r=256/n=4096 on v5e — comparable to the whole O(nmr) GEMM budget of
-    an update step. Instead: Cholesky once, triangular-solve only against
-    the r-wide identity (narrowest possible), form A⁻¹ = L⁻ᵀL⁻¹, and apply
-    it to the wide rhs as an MXU GEMM. Measured 279→239 µs/iter on f32 ALS
-    (245→195 int8) at 4096²/r=256; numerically equivalent to the direct
-    solve (error ~cond·eps either way — Newton–Schulz would be 3× cheaper
-    again but collapses above cond 1e3, so not used)."""
+    Cholesky once, triangular-solve only against the r-wide identity
+    (the narrowest substitution), form A⁻¹ = L⁻ᵀL⁻¹, and apply it to the
+    wide (r, n) rhs as one GEMM instead of a wide substitution.
+    Numerically equivalent to the direct solve (error ~cond·eps either
+    way — Newton–Schulz would be cheaper again but collapses above
+    cond 1e3, so not used). A⁻¹ is built and applied at full precision:
+    the solution inherits the product's rounding times cond(A)."""
     r = A.shape[-1]
     L = jax.lax.linalg.cholesky(A)
     Linv = jax.lax.linalg.triangular_solve(
         L, jnp.eye(r, dtype=A.dtype), lower=True, left_side=True
     )
-    return (Linv.T @ Linv) @ rhs
+    return jnp.matmul(gram_cols(Linv), rhs, precision=HIGHEST)
 
 
 def solve_clamped(gram, rhs, shift, off, eps):
@@ -622,11 +626,9 @@ def _batched_solve_clamped_cg(Gb, rhs, shift, eps, x0, steps=3):
     """Warm-started Jacobi-preconditioned CG for the per-row normal
     equations of weighted/masked ALS, then clamp(>=0).
 
-    XLA:TPU's batched Cholesky is SEQUENTIAL over the factorization
-    steps — measured 1.4 s at (138k, 64, 64) f32 on a v5e, dominating
-    the entire iALS iteration (PERF.md round 3). Each CG step is one
-    batched (n, r, r) @ (n, r) matvec — pure HBM bandwidth, ~8 ms at
-    that shape — and because the OUTER ALS loop is itself iterative,
+    A batched Cholesky is sequential over the factorization steps.
+    Each CG step is one batched (n, r, r) @ (n, r) matvec — pure
+    memory bandwidth — and because the OUTER ALS loop is itself iterative,
     warm-starting from the previous factors makes a handful of inner
     steps sufficient (Takács & Pilászy 2011, ALS-CG): the sequence
     converges to the same fixed point, tested against the exact path.
@@ -684,7 +686,7 @@ def als_update_weighted(V, W, H, alpha, lambda_w=0.0, lambda_h=0.0,
     exact alternating minimizer instead of multiplicative steps.
 
     Per-row Grams are built panel-blocked (`block` rows/cols at a time:
-    one (block, r, r) einsum on the MXU + one batched Cholesky), so the
+    one (block, r, r) einsum + one batched Cholesky), so the
     O(n r²) Gram storage never materializes at full size. Cost per
     half-step: O(n m r² / panel-free) FLOPs on dense V — for sparse
     inputs use the sparse-aware twin (sparse_ops.als_update_weighted_
@@ -759,7 +761,7 @@ def _hals_half_sweep(XHt, G, W):
         g_col = lax.dynamic_slice_in_dim(G, t, 1, 1)[:, 0]     # (r,)
         x_col = lax.dynamic_slice_in_dim(XHt, t, 1, 1)[:, 0]   # (n,)
         w_col = lax.dynamic_slice_in_dim(W, t, 1, 1)[:, 0]
-        grad = W @ g_col - x_col
+        grad = jnp.matmul(W, g_col, precision=HIGHEST) - x_col
         hess = g_col[t]
         new = jnp.maximum(w_col - grad / jnp.where(hess != 0, hess, 1.0),
                           0.0)
@@ -774,22 +776,23 @@ def _hals_half_sweep(XHt, G, W):
 def _hals_half_sweep_blocked(XHt, G, W, block=32):
     """Blocked Gauss–Seidel HALS sweep — the SAME sequential column
     ordering as `_hals_half_sweep` (each column sees every earlier
-    updated column), restructured for the TPU:
+    updated column), restructured into few large steps:
 
     * columns are processed in blocks of `block`; the gradient base for
-      a whole block is ONE (n, r) @ (r, block) MXU GEMM instead of
+      a whole block is ONE (n, r) @ (r, block) GEMM instead of
       `block` dependent matvecs against the full W;
     * within a block the exact cyclic ordering is preserved by rank-1
       corrections: after column t changes by delta, every later
       column's gradient shifts by delta * G[t, s], applied as one
-      (block, n) outer-product add on the VPU;
-    * the sequential loop carries only the (block, n) transposed block
-      (dynamic SUBLANE slices — cheap on TPU), never the full (n, r) W.
+      (n, block) outer-product add.
 
     Identical update in exact arithmetic; differs from the sequential
     sweep only in summation order (f32 roundoff), which the parity
-    tests bound. This is the TPU answer to sklearn's Cython
-    `_update_cdnmf_fast` inner loop — same math, MXU-blocked.
+    tests bound. Same math as sklearn's Cython `_update_cdnmf_fast`
+    inner loop, blocked. The base GEMM runs at HIGHEST precision: the
+    sweep is sequential, so TF32 rounding would compound across blocks.
+    A Triton kernel that ran the whole half-sweep in one launch was
+    slower than this form on the H100 (PERF.md).
     """
     n, r = W.shape
     block = min(block, r)
@@ -798,7 +801,7 @@ def _hals_half_sweep_blocked(XHt, G, W, block=32):
     def do_block(W, start, b):
         Gb = lax.dynamic_slice_in_dim(G, start, b, 1)        # (r, b)
         Xb = lax.dynamic_slice_in_dim(XHt, start, b, 1)      # (n, b)
-        base = W @ Gb - Xb                                   # (n, b)
+        base = jnp.matmul(W, Gb, precision=HIGHEST) - Xb     # (n, b)
         Wb = lax.dynamic_slice_in_dim(W, start, b, 1)        # (n, b)
         Gbb = lax.dynamic_slice_in_dim(Gb, start, b, 0)      # (b, b)
 
@@ -830,38 +833,14 @@ def _hals_half_sweep_blocked(XHt, G, W, block=32):
     return W
 
 
-def hals_half_sweep(XHt, G, W, impl="auto", block=16):
-    """One HALS half-sweep, dispatched to the fastest implementation:
-
-    * ``pallas``  — the fused VMEM-resident sweep kernel
-      (`kernels.hals_sweep`; 0.12 ms/iter at 4096²/r=256 on a v5e —
-      6x the best XLA formulation, at parity with the MU step). Auto
-      picks it on a TPU backend for f32 at r >= 16.
-    * ``blocked`` — the MXU-blocked XLA sweep (`_hals_half_sweep_blocked`;
-      works at any dtype incl. float64, any backend).
-    * ``seq``     — the strictly sequential per-column oracle.
-
-    All three are the same update in exact arithmetic; in f32 they
-    differ only in summation order (the pallas kernel runs the base
-    GEMM transposed), bounded by the parity tests.
-    """
-    r = G.shape[0]
-    if impl == "auto":
-        if r < 16:
-            impl = "seq"
-        elif W.dtype == jnp.float32:
-            from nmftpu.kernels import hals_sweep as _hs
-
-            impl = "pallas" if _hs.available() else "blocked"
-        else:
-            impl = "blocked"
-    if impl == "pallas":
-        from nmftpu.kernels import hals_sweep as _hs
-
-        return _hs.hals_sweep(XHt, G, W, block=min(block, r))
-    if impl == "blocked":
-        return _hals_half_sweep_blocked(XHt, G, W, block=block)
-    return _hals_half_sweep(XHt, G, W)
+def hals_half_sweep(XHt, G, W, block=16):
+    """One HALS half-sweep: the blocked sweep (`_hals_half_sweep_blocked`),
+    or the strictly sequential one below rank 16, where a block would
+    cover the whole factor. Both are the same update in exact
+    arithmetic, bounded in f32 by the parity tests."""
+    if G.shape[0] < 16:
+        return _hals_half_sweep(XHt, G, W)
+    return _hals_half_sweep_blocked(XHt, G, W, block=block)
 
 
 def hals_update(V, W, H, eps=1e-9, order="WH", l2_w=0.0, l2_h=0.0,
@@ -873,14 +852,13 @@ def hals_update(V, W, H, eps=1e-9, order="WH", l2_w=0.0, l2_h=0.0,
     """HALS / coordinate descent (Cichocki & Phan; sklearn's DEFAULT
     'cd' solver): per-iteration, one cyclic rank-1 sweep over W's
     columns then one over H's rows. Same O(nmr) GEMMs as MU for the
-    numerators plus O((n+m) r²) VPU column work; typically converges in
+    numerators plus O((n+m) r²) column work; typically converges in
     far fewer iterations than MU. Frobenius objective only.
 
     `block` selects the sweep implementation: block=1 is the strictly
     sequential per-column sweep (the semantic oracle); block>1
-    dispatches through `hals_half_sweep` (fused Pallas kernel on TPU
-    f32, MXU-blocked XLA sweep elsewhere) — the same column ordering,
-    f32-roundoff-equivalent, ~8x faster on TPU."""
+    dispatches through `hals_half_sweep` (the blocked XLA sweep) — the
+    same column ordering, f32-roundoff-equivalent."""
     r = W.shape[1]
     eye = jnp.eye(r, dtype=W.dtype)
     if block > 1:
@@ -889,11 +867,11 @@ def hals_update(V, W, H, eps=1e-9, order="WH", l2_w=0.0, l2_h=0.0,
         half = _hals_half_sweep
 
     def sweep_w(W, H):
-        G = H @ H.T + l2_w * eye
+        G = gram_rows(H) + l2_w * eye
         return half(V @ H.T - l1_w, G, W)
 
     def sweep_h(W, H):
-        G = W.T @ W + l2_h * eye
+        G = gram_cols(W) + l2_h * eye
         return half(V.T @ W - l1_h, G, H.T).T
 
     if order == "WH":
@@ -905,6 +883,12 @@ def hals_update(V, W, H, eps=1e-9, order="WH", l2_w=0.0, l2_h=0.0,
     return W, H
 
 
+def _rhs(A, B):
+    """An ALS-family right-hand side at full precision: the solve
+    amplifies its rounding by the Gram's condition number."""
+    return jnp.matmul(A, B, precision=HIGHEST)
+
+
 def als_update(V, W, H, eps=1e-9, order="WH"):
     """ALS iteration: exact LS via normal equations, then clamp to >= 0.
 
@@ -913,11 +897,11 @@ def als_update(V, W, H, eps=1e-9, order="WH"):
     """
 
     def upd_w(W, H):
-        Wt = _solve_h(H @ H.T, H @ V.T, eps)     # (r, n)
+        Wt = _solve_h(gram_rows(H), _rhs(H, V.T), eps)     # (r, n)
         return jnp.maximum(Wt.T, 0.0)
 
     def upd_h(W, H):
-        Ht = _solve_h(W.T @ W, W.T @ V, eps)     # (r, m)
+        Ht = _solve_h(gram_cols(W), _rhs(W.T, V), eps)     # (r, m)
         return jnp.maximum(Ht, 0.0)
 
     if order == "WH":
@@ -936,11 +920,11 @@ def acls_update(V, W, H, lambda_w=0.0, lambda_h=0.0, eps=1e-9, order="WH"):
     """
 
     def upd_w(W, H):
-        Wt = _solve_h(H @ H.T, H @ V.T, lambda_w + eps)
+        Wt = _solve_h(gram_rows(H), _rhs(H, V.T), lambda_w + eps)
         return jnp.maximum(Wt.T, 0.0)
 
     def upd_h(W, H):
-        Ht = _solve_h(W.T @ W, W.T @ V, lambda_h + eps)
+        Ht = _solve_h(gram_cols(W), _rhs(W.T, V), lambda_h + eps)
         return jnp.maximum(Ht, 0.0)
 
     if order == "WH":
@@ -978,14 +962,14 @@ def ahcls_update(
 
     def upd_w(W, H):
         diag, off = _ahcls_shift(lambda_w, alpha_w, r, dt)
-        A = H @ H.T + (diag + eps) * jnp.eye(r, dtype=dt) + off * ones
-        Wt = spd_solve(A, H @ V.T)
+        A = gram_rows(H) + (diag + eps) * jnp.eye(r, dtype=dt) + off * ones
+        Wt = spd_solve(A, _rhs(H, V.T))
         return jnp.maximum(Wt.T, 0.0)
 
     def upd_h(W, H):
         diag, off = _ahcls_shift(lambda_h, alpha_h, r, dt)
-        A = W.T @ W + (diag + eps) * jnp.eye(r, dtype=dt) + off * ones
-        Ht = spd_solve(A, W.T @ V)
+        A = gram_cols(W) + (diag + eps) * jnp.eye(r, dtype=dt) + off * ones
+        Ht = spd_solve(A, _rhs(W.T, V))
         return jnp.maximum(Ht, 0.0)
 
     if order == "WH":
@@ -1004,7 +988,7 @@ def gdcls_update(V, W, H, lambda_tik=0.0, eps=1e-9, order="WH"):
         return mu_update_w_frobenius(V, W, H, eps)
 
     def upd_h(W, H):
-        Ht = _solve_h(W.T @ W, W.T @ V, lambda_tik + eps)
+        Ht = _solve_h(gram_cols(W), _rhs(W.T, V), lambda_tik + eps)
         return jnp.maximum(Ht, 0.0)
 
     if order == "WH":
@@ -1065,10 +1049,10 @@ def frobenius_error_sq(V, W, H, sum_v_sq=None):
     """
     if sum_v_sq is None:
         sum_v_sq = jnp.sum(V * V)
-    WtV = W.T @ V                        # (r, m)
+    WtV = jnp.matmul(W.T, V, precision=HIGHEST)   # (r, m)
     cross = jnp.sum(WtV * H)
-    WtW = W.T @ W
-    HHt = H @ H.T
+    WtW = gram_cols(W)
+    HHt = gram_rows(H)
     quad = jnp.sum(WtW * HHt)
     # Clamp: the identity can go slightly negative in floating point near
     # convergence.
@@ -1092,7 +1076,7 @@ def kl_error(V, W, H, eps=1e-12):
     Zero entries of V contribute only their +WH term (lim x->0 x log x = 0),
     matching sklearn's beta_divergence(beta=1) up to the eps guard.
     """
-    WH = W @ H
+    WH = jnp.matmul(W, H, precision=HIGHEST)
     ratio_term = jnp.where(
         V > 0, V * (jnp.log(jnp.maximum(V, eps) / jnp.maximum(WH, eps))), 0.0
     )

@@ -14,7 +14,7 @@ structure, restarts agree and C's entries concentrate at {0, 1}:
   largest k before rho drops.
 * dispersion(k) = (1/n^2) sum 4 (C_ij - 1/2)^2 — 1 iff C is binary.
 
-TPU shape: the restarts reuse the library's jit-cached drivers (each
+Shape: the restarts reuse the library's jit-cached drivers (each
 restart is one on-device while_loop), and the O(n^2) connectivity
 accumulation is a device-side label-equality outer compare. For large
 n pass `sample` to estimate C on a seeded row subset (standard

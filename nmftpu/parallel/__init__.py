@@ -1,12 +1,12 @@
 """Parallelism layer (SURVEY.md §2.9, §5.7–5.8): the capability the
-single-GPU reference lacked entirely, designed TPU-first.
+single-GPU reference lacked entirely.
 
 * 2-D logical device mesh ('users', 'items'): W row-sharded over the users
   axis, H column-sharded over the items axis, V's nonzeros tiled over both.
 * One `shard_map` per iteration: local SpMM/SDDMM primitives on each tile,
   tiny r x r Grams and (r, block) numerators reduced with `psum` over the
   matching mesh axis — the MPI-FAUN 2-D-grid communication pattern, carried
-  by XLA collectives over ICI/DCN instead of MPI.
+  by XLA collectives (NCCL on the GPU) instead of MPI.
 * Sharded retrieval: per-item-shard blocked top-k, then an all-gather merge.
 """
 

@@ -5,9 +5,9 @@ The logical mesh has two axes:
             numerators and W^T W ride psum over this axis;
   'items' — H (r, m) is column-sharded here; dual reductions likewise.
 
-On hardware the mesh should be laid out so both axes map onto ICI within a
-slice (jax.make_mesh handles physical placement); across hosts the same
-program runs over DCN via jax.distributed.initialize().
+On the GPU every card of a host reaches every other over NVLink at the
+same rate, so the mesh shape follows the algorithm alone; across hosts
+the same program runs via jax.distributed.initialize().
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Multi-host bring-up (SURVEY.md §5.8, §3.1 TPU equivalent).
+"""Multi-host bring-up (SURVEY.md §5.8, §3.1).
 
 The reference is single-process; its `nmfgpu_initialize` maps here to
 `initialize_distributed()`: every host runs the same program, JAX's
-distributed runtime wires the hosts into one global device set (ICI within
-a slice, DCN across hosts), and the 2-D ('users','items') mesh simply
+distributed runtime wires the hosts into one global device set, and the
+2-D ('users','items') mesh simply
 spans all global devices — the shard_map update code is unchanged.
 
 Data placement across processes uses `jax.make_array_from_callback`: each
@@ -26,9 +26,11 @@ def initialize_distributed(
 ) -> None:
     """Initialize JAX's multi-host runtime (idempotent).
 
-    With no arguments, relies on the environment (TPU pod metadata or the
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
-    variables). Call before any other JAX operation on every host.
+    With no arguments, relies on the environment (a cluster JAX can
+    detect, or the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID variables; a plain GPU host has neither, so pass
+    the coordinator address, process count and id there). Call before
+    any other JAX operation on every host.
     """
     kwargs = {}
     if coordinator_address is None:

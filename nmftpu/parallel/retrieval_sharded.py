@@ -25,7 +25,7 @@ from nmftpu.retrieval.mips import (
 def topk_mips_sharded(Wq, H, k, mesh, block=4096, exclude_mask=None,
                       exclude_lists=None, seen=None, method="exact",
                       candidate_k=None, h_scale=None,
-                      reservoir_slots=4096, interpret=None):
+                      reservoir_slots=4096, interpret=False):
     """Top-k over an items-sharded table H (r, m).
 
     Wq: (b, r) queries (replicated); H sharded P(None, 'items');
@@ -35,20 +35,19 @@ def topk_mips_sharded(Wq, H, k, mesh, block=4096, exclude_mask=None,
     (pi·nblocks_loc, E) shard-major so each shard receives exactly its
     own blocks. seen: (b, S) padded GLOBAL item ids (-1 padding) — the
     OVERSAMPLING exclusion form: every shard retrieves k+S candidates
-    scatter-free (preserving the GEMM->scan fusion the per-block scatter
-    breaks — PERF.md round 4), the cross-shard merge keeps k+S, and one
+    scatter-free, the cross-shard merge keeps k+S, and one
     final broadcast-compare drops the seen set. Exact: at most S_u seen
     items can pollute a user's merged list.
     method: "exact", "approx" (hardware approx_max_k inside each shard's
     blocked scan; both cross-block and cross-shard merges exact), or
-    "reservoir" (each shard runs the fused Pallas GEMM→top-2-per-slot
+    "reservoir" (each shard runs the GEMM→top-2-per-slot reservoir
     scan of kernels/mips_reservoir.py over its local table slice —
     per-shard recall ≈ 1 − C(k,3)/reservoir_slots², and the cross-shard
     merge stays exact; exclusion must use `seen`/none, the mask/lists
     forms belong to the blocked scans).
     candidate_k: per-block candidate count for the approx path.
-    interpret: reservoir only — run the kernel in interpret mode (CPU
-    meshes); defaults to True off-TPU.
+    interpret: reservoir only — run the Triton kernel in the Pallas
+    interpreter (tests); otherwise `nmftpu.backend` picks the scan.
     Returns (scores (b, k), global item indices (b, k)), replicated.
     """
     has_mask = exclude_mask is not None
@@ -71,9 +70,6 @@ def topk_mips_sharded(Wq, H, k, mesh, block=4096, exclude_mask=None,
             f"{2 * reservoir_slots} per-shard candidates; raise "
             "reservoir_slots or trim the seen lists"
         )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
     def local_topk(Wq, H_loc, *extra):
         m_loc = H_loc.shape[1]
         mask_loc = extra[0] if has_mask else None

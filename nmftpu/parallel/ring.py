@@ -22,8 +22,8 @@ structurally the ring-attention pattern with H blocks in the KV role:
 
 Per-iteration comm volume: O(r·m) rotated around the ring (2·r·m for the
 pair rotation) + r·n for the W side — higher than the 2-D grid's
-O((n/pu + m/pi)·r); use the ring when the mesh is physically 1-D (a
-single ICI ring) or when the item axis alone must scale.
+O((n/pu + m/pi)·r); use the ring when the item axis alone must
+scale.
 
 Supported here: MU (Frobenius, KL, generalized beta, confidence-
 weighted), ALS/ACLS/AHCLS, GDCLS, nsNMF (both objectives) — full parity
@@ -198,7 +198,7 @@ def build_ring_update(config: NmfConfig, mesh: Mesh, scoo_meta):
             vals, rows, cols, H, lambda l, h: v_ht(l, tf(h))
         )
         Ht = tf(H)
-        G = lax.psum(Ht @ Ht.T, AXIS_RING)
+        G = lax.psum(D.gram_rows(Ht), AXIS_RING)
         return W * (numer / (W @ G + eps))
 
     def w_kl(vals, rows, cols, W, H, HT=None):
@@ -256,18 +256,18 @@ def build_ring_update(config: NmfConfig, mesh: Mesh, scoo_meta):
         both, _ = ring.rotate_w(vals, rows, cols, H, contrib)
         r = W.shape[1]
         numer, alpha_part = both[:, :r], both[:, r:]
-        HHt = lax.psum(H @ H.T, AXIS_RING)
+        HHt = lax.psum(D.gram_rows(H), AXIS_RING)
         return W * (numer / (W @ HHt + alpha * alpha_part + eps))
 
     def w_als(vals, rows, cols, W, H, shift, off):
         rhs, _ = ring.rotate_w(vals, rows, cols, H, v_ht)
-        gram = lax.psum(H @ H.T, AXIS_RING)
+        gram = lax.psum(D.gram_rows(H), AXIS_RING)
         return _solve_clamped(gram, rhs.T, shift, off, eps).T
 
     def w_hals(vals, rows, cols, W, H, l2, l1):
         r = W.shape[1]
         XHt, _ = ring.rotate_w(vals, rows, cols, H, v_ht)
-        G = lax.psum(H @ H.T, AXIS_RING) + l2 * jnp.eye(r, dtype=W.dtype)
+        G = lax.psum(D.gram_rows(H), AXIS_RING) + l2 * jnp.eye(r, dtype=W.dtype)
         return D.hals_half_sweep(XHt - l1, G, W)
 
     def w_als_weighted(vals, rows, cols, W, H, alpha, lam):
@@ -291,7 +291,7 @@ def build_ring_update(config: NmfConfig, mesh: Mesh, scoo_meta):
         both, _ = ring.rotate_w(vals, rows, cols, H, contrib)
         dG = both[:, : r * r].reshape(bn, r, r)
         rhs = both[:, r * r:]
-        G = lax.psum((H @ H.T).astype(jnp.float32), AXIS_RING)
+        G = lax.psum(D.gram_rows(H).astype(jnp.float32), AXIS_RING)
         out = D._batched_solve_clamped(G[None] + dG, rhs, lam, eps)
         return out.astype(W.dtype)
 
@@ -299,7 +299,7 @@ def build_ring_update(config: NmfConfig, mesh: Mesh, scoo_meta):
     def h_fro(vals, rows, cols, W, H, WT=None):
         Wt = WT(W) if WT is not None else W
         numer = ring.reduce_h(vals, rows, cols, lambda l: wt_v(l, Wt))
-        G = lax.psum(Wt.T @ Wt, AXIS_RING)
+        G = lax.psum(D.gram_cols(Wt), AXIS_RING)
         return H * (numer / (G @ H + eps))
 
     def h_kl(vals, rows, cols, W, H, WT=None):
@@ -349,18 +349,18 @@ def build_ring_update(config: NmfConfig, mesh: Mesh, scoo_meta):
         both = ring.pair_reduce_h(vals, rows, cols, H, contrib)
         r = W.shape[1]
         numer, alpha_part = both[:r], both[r:]
-        WtW = lax.psum(W.T @ W, AXIS_RING)
+        WtW = lax.psum(D.gram_cols(W), AXIS_RING)
         return H * (numer / (WtW @ H + alpha * alpha_part + eps))
 
     def h_als(vals, rows, cols, W, H, shift, off):
         rhs = ring.reduce_h(vals, rows, cols, lambda l: wt_v(l, W))
-        gram = lax.psum(W.T @ W, AXIS_RING)
+        gram = lax.psum(D.gram_cols(W), AXIS_RING)
         return _solve_clamped(gram, rhs, shift, off, eps)
 
     def h_hals(vals, rows, cols, W, H, l2, l1):
         r = W.shape[1]
         XtW = ring.reduce_h(vals, rows, cols, lambda l: wt_v(l, W)).T
-        G = lax.psum(W.T @ W, AXIS_RING) + l2 * jnp.eye(r, dtype=W.dtype)
+        G = lax.psum(D.gram_cols(W), AXIS_RING) + l2 * jnp.eye(r, dtype=W.dtype)
         return D.hals_half_sweep(XtW - l1, G, H.T).T
 
     def h_als_weighted(vals, rows, cols, W, H, alpha, lam):
@@ -384,7 +384,7 @@ def build_ring_update(config: NmfConfig, mesh: Mesh, scoo_meta):
         both = ring.reduce_h(vals, rows, cols, contrib)
         dG = both[:, : r * r].reshape(bm, r, r)
         rhs = both[:, r * r:]
-        G = lax.psum((W.T @ W).astype(jnp.float32), AXIS_RING)
+        G = lax.psum(D.gram_cols(W).astype(jnp.float32), AXIS_RING)
         out = D._batched_solve_clamped(G[None] + dG, rhs, lam, eps)
         return out.T.astype(H.dtype)
 
@@ -532,8 +532,8 @@ def build_ring_errors(mesh: Mesh, scoo_meta):
             ),
             AXIS_RING,
         )
-        WtW = lax.psum(W.T @ W, AXIS_RING)
-        HHt = lax.psum(H @ H.T, AXIS_RING)
+        WtW = lax.psum(D.gram_cols(W), AXIS_RING)
+        HHt = lax.psum(D.gram_rows(H), AXIS_RING)
         quad = jnp.sum(WtW * HHt)
         return jnp.sqrt(jnp.maximum(svsq[0] - 2.0 * cross + quad, 0.0))
 

@@ -117,7 +117,7 @@ def partition_sparse(
     # boolean scan per tile replaces the O(nnz log nnz) stable argsort —
     # and the resulting selections are SORTED, so the gathers below run
     # monotonically instead of randomly (measured ~3x on the 100M-nnz
-    # partition; BENCH_host_partition.json).
+    # partition; scripts/bench_host_partition.py).
     for t in range(pu * pi):
         sel = np.flatnonzero(tile_id == t)
         k = len(sel)

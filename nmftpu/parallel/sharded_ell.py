@@ -25,6 +25,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from nmftpu import sparse as host_sparse
 from nmftpu import sparse_ell as SE
+from nmftpu.linalg.dense import gram_cols, gram_rows
 from nmftpu.parallel.mesh import AXIS_ITEMS, AXIS_USERS
 from nmftpu.sparse_ell import EllBucket, EllRows
 
@@ -99,7 +100,7 @@ def _tile_ell_arrays(
     Padding segments keep out_row NON-DECREASING (repeating the tile's
     last real row; their values are zero, so the add is a no-op) —
     the sparse_ell scatter-adds promise indices_are_sorted=True, and a
-    zero-row pad would break that promise on TPU's sorted-scatter path.
+    zero-row pad would break that promise on the sorted-scatter path.
     """
     buckets_arr = np.asarray(buckets, dtype=np.int64)
     per_tile = {
@@ -280,7 +281,7 @@ def build_sharded_ell_update(config, mesh, sell: ShardedEll):
                 numer, alpha_part = SE.sampled_rowsums_ell(
                     ell_r, W, H, wfns
                 )
-                HHt = lax.psum(H @ H.T, AXIS_ITEMS)
+                HHt = lax.psum(gram_rows(H), AXIS_ITEMS)
                 den = (
                     W @ HHt
                     + alpha * lax.psum(alpha_part, AXIS_ITEMS)
@@ -293,7 +294,7 @@ def build_sharded_ell_update(config, mesh, sell: ShardedEll):
                 numer, alpha_part = SE.sampled_rowsums_ell(
                     ell_c, jnp.asarray(H).T, Wt, wfns
                 )
-                WtW = lax.psum(W.T @ W, AXIS_USERS)
+                WtW = lax.psum(gram_cols(W), AXIS_USERS)
                 den = (
                     WtW @ H
                     + alpha * lax.psum(alpha_part.T, AXIS_USERS)
@@ -304,11 +305,11 @@ def build_sharded_ell_update(config, mesh, sell: ShardedEll):
         elif obj is Objective.FROBENIUS:
 
             def upd_w(W, H):
-                HHt = lax.psum(H @ H.T, AXIS_ITEMS)
+                HHt = lax.psum(gram_rows(H), AXIS_ITEMS)
                 return W * (numer_w(H) / (W @ HHt + eps))
 
             def upd_h(W, H):
-                WtW = lax.psum(W.T @ W, AXIS_USERS)
+                WtW = lax.psum(gram_cols(W), AXIS_USERS)
                 return H * (numer_h(W) / (WtW @ H + eps))
 
         elif obj is Objective.BETA:
@@ -433,8 +434,8 @@ def build_sharded_ell_errors(mesh, sell: ShardedEll):
         ell_c = _local_ell(sell.c_widths, c_vals, c_cols, c_rows, cshape)
         WtV = lax.psum(SE.v_ht_ell(ell_c, jnp.asarray(W).T).T, AXIS_USERS)
         cross = lax.psum(jnp.sum(WtV * H), AXIS_ITEMS)
-        WtW = lax.psum(W.T @ W, AXIS_USERS)
-        HHt = lax.psum(H @ H.T, AXIS_ITEMS)
+        WtW = lax.psum(gram_cols(W), AXIS_USERS)
+        HHt = lax.psum(gram_rows(H), AXIS_ITEMS)
         return jnp.sqrt(jnp.maximum(
             svsq[0] - 2.0 * cross + jnp.sum(WtW * HHt), 0.0
         ))

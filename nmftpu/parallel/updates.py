@@ -10,7 +10,7 @@ tile, and the only cross-device traffic is
                        W column-sums (r,)
 
 — the MPI-FAUN 2-D communication pattern (comm volume O((n/pu + m/pi) r)
-per iteration), realized as XLA collectives over ICI/DCN. W stays
+per iteration), realized as XLA collectives. W stays
 replicated along 'items', H along 'users', so the while_loop carry keeps a
 stable sharding across iterations with zero resharding.
 
@@ -63,13 +63,13 @@ def _shmap(mesh, f, in_specs, out_specs):
 
 def _upd_w_fro(local, W, H, eps):
     numer = lax.psum(v_ht(local, H), AXIS_ITEMS)          # (br, r)
-    HHt = lax.psum(H @ H.T, AXIS_ITEMS)                   # (r, r)
+    HHt = lax.psum(D.gram_rows(H), AXIS_ITEMS)                   # (r, r)
     return W * (numer / (W @ HHt + eps))
 
 
 def _upd_h_fro(local, W, H, eps):
     numer = lax.psum(wt_v(local, W), AXIS_USERS)          # (r, bc)
-    WtW = lax.psum(W.T @ W, AXIS_USERS)
+    WtW = lax.psum(D.gram_cols(W), AXIS_USERS)
     return H * (numer / (WtW @ H + eps))
 
 
@@ -216,7 +216,7 @@ def _upd_w_weighted(local, W, H, alpha, eps):
     cv = local.with_values(local.values * (1.0 + alpha * local.values))
     swh = local.with_values(local.values * sddmm(local, W, H))
     numer = lax.psum(v_ht(cv, H), AXIS_ITEMS)
-    HHt = lax.psum(H @ H.T, AXIS_ITEMS)
+    HHt = lax.psum(D.gram_rows(H), AXIS_ITEMS)
     alpha_part = lax.psum(v_ht(swh, H), AXIS_ITEMS)
     return W * (numer / (W @ HHt + alpha * alpha_part + eps))
 
@@ -225,7 +225,7 @@ def _upd_h_weighted(local, W, H, alpha, eps):
     cv = local.with_values(local.values * (1.0 + alpha * local.values))
     swh = local.with_values(local.values * sddmm(local, W, H))
     numer = lax.psum(wt_v(cv, W), AXIS_USERS)
-    WtW = lax.psum(W.T @ W, AXIS_USERS)
+    WtW = lax.psum(D.gram_cols(W), AXIS_USERS)
     alpha_part = lax.psum(wt_v(swh, W), AXIS_USERS)
     return H * (numer / (WtW @ H + alpha * alpha_part + eps))
 
@@ -236,14 +236,14 @@ def _upd_w_hals(local, W, H, l2, l1, eps):
     disjoint across the users axis)."""
     r = W.shape[1]
     XHt = lax.psum(v_ht(local, H), AXIS_ITEMS) - l1
-    G = lax.psum(H @ H.T, AXIS_ITEMS) + l2 * jnp.eye(r, dtype=W.dtype)
+    G = lax.psum(D.gram_rows(H), AXIS_ITEMS) + l2 * jnp.eye(r, dtype=W.dtype)
     return D.hals_half_sweep(XHt, G, W)
 
 
 def _upd_h_hals(local, W, H, l2, l1, eps):
     r = W.shape[1]
     XtW = lax.psum(wt_v(local, W), AXIS_USERS).T - l1   # (bc, r)
-    G = lax.psum(W.T @ W, AXIS_USERS) + l2 * jnp.eye(r, dtype=W.dtype)
+    G = lax.psum(D.gram_cols(W), AXIS_USERS) + l2 * jnp.eye(r, dtype=W.dtype)
     return D.hals_half_sweep(XtW, G, H.T).T
 
 
@@ -257,7 +257,7 @@ def _upd_w_als_weighted(local, W, H, alpha, lam, eps, solve):
     (block_rows, r, r) f32."""
     from nmftpu.sparse_ops import _weighted_row_grams
 
-    G = lax.psum((H @ H.T).astype(jnp.float32), AXIS_ITEMS)
+    G = lax.psum(D.gram_rows(H).astype(jnp.float32), AXIS_ITEMS)
     dG = lax.psum(
         _weighted_row_grams(local, H.T.astype(jnp.float32), alpha,
                             W.shape[0]),
@@ -272,7 +272,7 @@ def _upd_w_als_weighted(local, W, H, alpha, lam, eps, solve):
 def _upd_h_als_weighted(local, W, H, alpha, lam, eps, solve):
     from nmftpu.sparse_ops import _weighted_row_grams
 
-    G = lax.psum((W.T @ W).astype(jnp.float32), AXIS_USERS)
+    G = lax.psum(D.gram_cols(W).astype(jnp.float32), AXIS_USERS)
     dG = lax.psum(
         _weighted_row_grams(local, W.astype(jnp.float32), alpha,
                             H.shape[1], by_cols=True),
@@ -289,13 +289,13 @@ _solve_clamped = D.solve_clamped
 
 def _upd_w_als(local, W, H, shift, off, eps):
     rhs = lax.psum(v_ht(local, H), AXIS_ITEMS).T          # (r, br)
-    gram = lax.psum(H @ H.T, AXIS_ITEMS)
+    gram = lax.psum(D.gram_rows(H), AXIS_ITEMS)
     return _solve_clamped(gram, rhs, shift, off, eps).T
 
 
 def _upd_h_als(local, W, H, shift, off, eps):
     rhs = lax.psum(wt_v(local, W), AXIS_USERS)            # (r, bc)
-    gram = lax.psum(W.T @ W, AXIS_USERS)
+    gram = lax.psum(D.gram_cols(W), AXIS_USERS)
     return _solve_clamped(gram, rhs, shift, off, eps)
 
 
@@ -439,13 +439,13 @@ def build_sharded_update(config: NmfConfig, mesh, scoo_meta: ShardedCOO):
             def upd_w(l, W, H, S):
                 SH = S @ H
                 numer = lax.psum(v_ht(l, SH), AXIS_ITEMS)
-                G = lax.psum(SH @ SH.T, AXIS_ITEMS)
+                G = lax.psum(D.gram_rows(SH), AXIS_ITEMS)
                 return W * (numer / (W @ G + eps))
 
             def upd_h(l, W, H, S):
                 WS = W @ S
                 numer = lax.psum(wt_v(l, WS), AXIS_USERS)
-                G = lax.psum(WS.T @ WS, AXIS_USERS)
+                G = lax.psum(D.gram_cols(WS), AXIS_USERS)
                 return H * (numer / (G @ H + eps))
 
         else:
@@ -554,8 +554,8 @@ def build_sharded_errors(mesh, scoo_meta: ShardedCOO, masked=False):
         local = _local(scoo_meta, vals, rows, cols)
         WtV = lax.psum(wt_v(local, W), AXIS_USERS)        # (r, bc)
         cross = lax.psum(jnp.sum(WtV * H), AXIS_ITEMS)
-        WtW = lax.psum(W.T @ W, AXIS_USERS)
-        HHt = lax.psum(H @ H.T, AXIS_ITEMS)
+        WtW = lax.psum(D.gram_cols(W), AXIS_USERS)
+        HHt = lax.psum(D.gram_rows(H), AXIS_ITEMS)
         quad = jnp.sum(WtW * HHt)
         return jnp.sqrt(jnp.maximum(svsq[0] - 2.0 * cross + quad, 0.0))
 

@@ -1,7 +1,7 @@
 """Top-k maximum-inner-product search over the item factor table.
 
-The score matrix is W_q @ H — one MXU GEMM — so exact MIPS on TPU is a
-blocked GEMM + running top-k merge, not an index structure (cf. "To Index
+The score matrix is W_q @ H — one GEMM — so exact MIPS is a blocked
+GEMM + running top-k merge, not an index structure (cf. "To Index
 or Not to Index" — exact blocked scan wins at these ranks). The blocked
 variant never materializes more than (batch, block) scores, which is also
 exactly the per-shard kernel the sharded retrieval path runs before its
@@ -21,7 +21,8 @@ NEG_INF = -jnp.inf
 
 
 def _score_dot(Wq, Hblk, h_scale=None):
-    """Scoring GEMM with f32 accumulation at the TABLE's dtype: a bf16
+    """Scoring GEMM with f32 accumulation at the TABLE's dtype (an f32
+    table at HIGHEST, see `_table_precision`): a bf16
     item table (`Recommender(table_dtype="bfloat16")`) halves both the
     per-chip table footprint and the scan's HBM read traffic — the exact
     path's bandwidth bill — while the f32 accumulation keeps top-k
@@ -56,8 +57,17 @@ def _score_dot(Wq, Hblk, h_scale=None):
     return lax.dot_general(
         Wq.astype(Hblk.dtype), Hblk,
         dimension_numbers=(((1,), (0,)), ((), ())),
+        precision=_table_precision(Hblk.dtype),
         preferred_element_type=jnp.float32,
     )
+
+
+def _table_precision(dtype):
+    """An f32 table scores at HIGHEST: f32 is the table a caller picks
+    for exact scores, and the GPU's default TF32 would round its
+    operands to 10 bits. bf16/int8 tables name their own operand
+    precision."""
+    return lax.Precision.HIGHEST if dtype == jnp.float32 else None
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
@@ -69,7 +79,7 @@ def topk_mips(Wq, H, k, exclude_mask=None, h_scale=None):
     entries (e.g. training interactions) are excluded from the
     candidates. Returns (scores (b, k), indices (b, k)).
     """
-    scores = _score_dot(Wq, H, h_scale)              # (b, m) — MXU
+    scores = _score_dot(Wq, H, h_scale)              # (b, m)
     if exclude_mask is not None:
         scores = jnp.where(exclude_mask, NEG_INF, scores)
     return lax.top_k(scores, k)
@@ -93,9 +103,11 @@ def topk_mips_blocked(Wq, H, k, block=4096, exclude_mask=None,
 
     method="exact" uses `lax.top_k` per block (exact but sort-bound — the
     top-k, not the scoring GEMM, dominates at large m). method="approx"
-    uses the TPU's hardware-accelerated `lax.approx_max_k` per block
-    (recall target 0.95 per block; the cross-block merge stays exact) —
-    an order of magnitude faster serving at marginal recall loss.
+    uses `lax.approx_max_k` per block (recall target 0.95 per block; the
+    cross-block merge stays exact). On the GPU and the CPU, XLA lowers
+    `approx_max_k` to its ApproxTopK fallback, an exact sort-and-slice
+    top-k (jax/_src/lax/ann.py), so there "approx" returns exact
+    per-block results at the exact method's cost.
     candidate_k (approx only): per-block candidate count k' — lower k'
     trades recall for block-sort time, higher k' (> k) buys back
     approx_max_k's per-block recall loss.
@@ -133,10 +145,8 @@ def topk_mips_excluded(Wq, H, k, seen, block=4096, method="exact",
     seen: (b, S) int32 item ids per query user, padded with -1.
 
     Why this form exists: `exclude_lists` scatters -inf into the (b,
-    block) score tile, and on TPU that scatter both serializes and
-    forces the score buffer to materialize in HBM — breaking the
-    GEMM->top-k fusion that makes megablock scans run at score-read
-    bandwidth (measured 3.5x slower at m=10M). Here the scan runs
+    block) score tile, which forces the score buffer to materialize in
+    device memory between the GEMM and the top-k. Here the scan runs
     completely exclusion-free retrieving k+S candidates, and the seen
     set is dropped by ONE (b, k+S, S) broadcast-compare at the end —
     exact: at most S_u seen items can pollute a user's candidate list,
@@ -171,8 +181,7 @@ def topk_mips_certified(Wq, H, k, block=1048576, candidate_k=None,
                         h_scale=None, seen=None):
     """Approx-speed top-k with a PER-ROW exactness certificate.
 
-    Pass 1 runs the blocked `approx_max_k` scan (megablocks — score-read
-    bandwidth, not top_k's sort). Pass 2 re-scans the scores counting,
+    Pass 1 runs the blocked `approx_max_k` scan (megablocks). Pass 2 re-scans the scores counting,
     per row, how many items strictly exceed the returned kth score
     (a GEMM + compare-reduce — fuses, no materialized scores). If that
     count is <= k-1 the approx result provably contains every item that
@@ -302,6 +311,7 @@ def _gather_scores(Wq, H, ids, h_scale=None):
         return sc if hs.ndim == 1 else sc * hs
     return jnp.einsum(
         "br,rbs->bs", Wq.astype(Hs.dtype), Hs,
+        precision=_table_precision(Hs.dtype),
         preferred_element_type=jnp.float32,
     )
 

@@ -18,11 +18,9 @@ import numpy as np
 from nmftpu.retrieval.mips import topk_mips_blocked, topk_mips_excluded
 from nmftpu.sparse import SparseCSR, SparseMatrix
 
-# Single-device approx serving scans MEGABLOCKS: approx_max_k runs at
-# score-read bandwidth (unlike top_k's sort), and the fused GEMM->scan
-# step never materializes the (b, block) scores — measured 20x over 16k
-# blocks at m=10M (PERF.md round 4). Exact top_k is width-linear, so
-# block size barely matters there; megablocks are safe for both.
+# Single-device approx/exact serving scans MEGABLOCKS: fewer, larger
+# scoring GEMMs and top-k steps per batch. The value is not tuned for
+# the GPU yet (chip_smoke.py prints it beside the per-batch times).
 _SERVE_BLOCK = 1 << 20
 # Oversampling exclusion retrieves k+S candidates and drops seen items
 # with one broadcast-compare at the end (exact; keeps the GEMM->scan
@@ -30,10 +28,9 @@ _SERVE_BLOCK = 1 << 20
 # form when the batch's widest seen list would blow up the candidate
 # width.
 _MAX_OVERSAMPLE_SEEN = 4096
-# Compile/device OOM backoff: an f32 r=256 table at m=10M with the
-# default megablock raises RESOURCE_EXHAUSTED inside XLA (the boundary
-# is recorded in BENCH_retrieval_10m.json); serving halves the block
-# and retries instead of surfacing the raw compiler error.
+# Compile/device OOM backoff: a large table with a large megablock can
+# raise RESOURCE_EXHAUSTED inside XLA; serving halves the block and
+# retries instead of surfacing the raw compiler error.
 _MIN_SERVE_BLOCK = 1 << 14
 _OOM_MARKERS = ("RESOURCE_EXHAUSTED", "Resource exhausted",
                 "Out of memory", "out of memory",
@@ -74,7 +71,10 @@ class Recommender:
             block = (8192 if mesh is not None
                      else max(1, min(_SERVE_BLOCK, m_items)))
         self.block = block
-        self.method = method  # "approx": TPU approx_max_k serving path
+        # "approx": lax.approx_max_k per block. On the GPU and the CPU
+        # XLA lowers it to an exact sort-and-slice top-k (ApproxTopK's
+        # fallback), so there it costs what "exact" costs.
+        self.method = method
         self.table_dtype = table_dtype
         # the ITEM table is the scanned operand: bf16 halves / int8
         # quarters its per-chip footprint (2x/4x the items per chip at
@@ -96,7 +96,7 @@ class Recommender:
             )
         else:
             H_dev = jnp.asarray(np.asarray(H), dtype=jnp.dtype(table_dtype))
-        # the reservoir kernel scans (r, slots) tiles: pad the table to a
+        # the reservoir scan reads (r, slots) tiles: pad the table to a
         # slots multiple ONCE at load (a per-call pad would copy the
         # multi-GB table every batch); n_items/save stay at the true m
         self.reservoir_slots = int(reservoir_slots)
@@ -135,10 +135,7 @@ class Recommender:
     def _scan_with_backoff(self, run):
         """Execute `run()` (a full serving scan built against
         self.block), halving the block and retrying on a device/compile
-        OOM — the f32 r=256 megablock at m=10M is the recorded boundary
-        (BENCH_retrieval_10m.json; the probe script
-        scripts/probe_oom_backoff.py validates the real error text).
-        `run` must re-derive everything block-dependent (exclusion
+        OOM. `run` must re-derive everything block-dependent (exclusion
         lists) on each call, and MUST return host (numpy) arrays: JAX
         dispatch is async, so a device-side OOM only surfaces at
         materialization — a run() returning device futures would raise
@@ -153,12 +150,12 @@ class Recommender:
                 hint = ("a bfloat16/int8 table_dtype shrinks the scan "
                         "footprint 2-4x")
                 if self.method == "reservoir":
-                    # the fused kernel itself is block-independent — if
+                    # the reservoir scan is block-independent — if
                     # the failure persists across retries the relevant
                     # knobs are reservoir_slots / table_dtype (block
                     # only drives the certify/fallback scans)
                     hint = ("for method='reservoir', reservoir_slots "
-                            "and table_dtype are the kernel-side knobs "
+                            "and table_dtype are the scan-side knobs "
                             "— block only affects the certify/fallback "
                             "scans")
                 warnings.warn(
@@ -202,20 +199,17 @@ class Recommender:
                 reservoir_slots=self.reservoir_slots,
             )
         if self.method == "reservoir":
-            import jax
-
             from nmftpu.kernels.mips_reservoir import reservoir_topk_mips
 
             if lists is None:
-                # fused GEMM + top-2-per-slot reservoir scan: the score
-                # tile never leaves VMEM (2.2x the megablock approx q/s
-                # at m=10M — PERF.md round 4b); exclusion rides the same
-                # oversampled drop over the 2*slots candidates
+                # GEMM + top-2-per-slot reservoir scan (nmftpu.backend
+                # picks the Triton kernel or the plain XLA form);
+                # exclusion rides the same oversampled drop over the
+                # 2*slots candidates
                 return reservoir_topk_mips(
                     Wq, self.H, k, slots=self.reservoir_slots,
                     seen=None if seen is None else np.asarray(seen),
                     h_scale=self._h_scale, m_items=self._m_items,
-                    interpret=jax.default_backend() != "tpu",
                 )
             # wide-seen scatter-lists fallback: megablock approx scan
             # over the unpadded table (lists treat every column as real)
@@ -325,11 +319,8 @@ class Recommender:
             if exclude_seen and self._train_csr is not None:
                 # method="exact" prefers the scatter-list form: top_k
                 # cost grows with the candidate width k+S, and the scan
-                # is already sort-bound — measured 2.3x faster than
-                # oversampling at m=10M (BENCH_retrieval_10m.json:
-                # exact+scatter 3,579 ms vs exact+oversample 8,195 ms).
-                # approx/reservoir keep oversampling (it preserves the
-                # GEMM->scan fusion the per-block scatter breaks).
+                # is already sort-bound. approx/reservoir keep
+                # oversampling (it keeps the scan free of scatters).
                 if self.method != "exact":
                     seen = self._seen_padded(self._train_csr, user_ids, k)
                 if seen is None:
@@ -347,8 +338,7 @@ class Recommender:
         the approx megablock scan plus a count-above-threshold
         verification pass — certified[u] proves row u IS the exact
         top-k up to ties at the kth score (see
-        retrieval.mips.topk_mips_certified; ~25x the sort-bound exact
-        scan at m=10M with ~95% rows certified).
+        retrieval.mips.topk_mips_certified).
 
         fallback="exact": uncertified rows are re-scanned through the
         exact path in ONE composed call, so every returned row is the
@@ -390,8 +380,6 @@ class Recommender:
             # ulp of the kth score) never certify at ANY slot count,
             # so a small subset pays the same one-bucket exact scan
             # either way and escalation would only add its own cost
-            # (measured: 387 vs 196 ms at 9 uncertified/512 —
-            # BENCH_serving_r05.json all_exact_escalated row)
             if len(rows) > 16:
                 rows = self._escalate_rows(s, i, rows, user_ids, k,
                                            exclude_seen)
@@ -410,15 +398,11 @@ class Recommender:
         padded width divisible by the escalated slot count — a per-call
         pad would copy the multi-GB table); returns `rows` unchanged
         otherwise."""
-        # 4x: ~1/16 the per-row miss rate (C(k,3)/slots^2), while the
-        # (r, 4*slots) int8 tile still fits the kernel's scoped-VMEM
-        # budget at r=256 (8x would not)
+        # 4x: ~1/16 the per-row miss rate (C(k,3)/slots^2)
         esc = self.reservoir_slots * 4
         if (self.mesh is not None or self.method != "reservoir"
                 or self.H.shape[1] % esc != 0):
             return rows
-        import jax
-
         from nmftpu.kernels.mips_reservoir import reservoir_topk_mips
         from nmftpu.retrieval.mips import certify_topk, rescore_and_sort
 
@@ -440,7 +424,6 @@ class Recommender:
             s0, i0 = reservoir_topk_mips(
                 Wq, self.H, k, slots=esc, seen=seen_os,
                 h_scale=self._h_scale, m_items=self._m_items,
-                interpret=jax.default_backend() != "tpu",
             )
             s1, i1 = rescore_and_sort(
                 Wq, self._serve_table(), i0, h_scale=self._h_scale,
@@ -454,9 +437,12 @@ class Recommender:
 
         try:
             s1, i1, cert1 = run()
-        except Exception as e:  # noqa: BLE001 — optimization only;
-            # the exact scan is the safety net (e.g. an 8x-slots tile
-            # can exceed the kernel's scoped-VMEM budget at high rank)
+        except Exception as e:  # noqa: BLE001 — filtered by _is_oom
+            # the escalation is an optimization: when its wider
+            # reservoir exhausts device memory the exact scan below
+            # covers the rows; any other failure is a fault and surfaces
+            if not _is_oom(e):
+                raise
             warnings.warn(
                 f"escalated certified pass failed "
                 f"({type(e).__name__}); falling back to the exact "
@@ -504,17 +490,15 @@ class Recommender:
             )
             return s, i, cert
         if self.method == "reservoir":
-            # candidates from the fused reservoir scan (1.7x the
-            # megablock pass); the returned ids are re-scored at the
-            # certify pass's dtype rules (a tiny b*k column gather)
-            # so the kth-score threshold is comparable — the kernel's
-            # all-bf16 scores sit ~0.4% below the scan's and would
+            # candidates from the reservoir scan; the returned ids are
+            # re-scored at the certify pass's dtype rules (a tiny b*k
+            # column gather) so the kth-score threshold is comparable —
+            # the scan's all-bf16 scores sit ~0.4% below the exact
+            # scan's and would
             # fail correct rows otherwise. Filler/seen slots (score
             # -inf from the scan) stay -inf through the re-score: at
             # k > available candidates the gather would otherwise
             # revive dropped ids as duplicates.
-            import jax
-
             from nmftpu.kernels.mips_reservoir import (
                 reservoir_topk_mips,
             )
@@ -530,7 +514,6 @@ class Recommender:
                 Wq, self.H, k, slots=self.reservoir_slots,
                 seen=seen_os, h_scale=self._h_scale,
                 m_items=self._m_items,
-                interpret=jax.default_backend() != "tpu",
             )
             s, i = rescore_and_sort(
                 Wq, self._serve_table(), i, h_scale=self._h_scale,

@@ -3,7 +3,7 @@
 The reference is consumed through a host-language binding whose calling
 convention its users already know (nmfgpu4R's ``nmf(data, r, ...)`` —
 SURVEY.md C19); the Python world's equivalent muscle memory is
-``sklearn.decomposition.NMF``. This module lets that code run on TPU by
+``sklearn.decomposition.NMF``. This module lets that code run on the GPU by
 swapping the import: same constructor surface, same ``fit`` /
 ``fit_transform`` / ``transform`` / ``inverse_transform`` methods, same
 fitted attributes (``components_``, ``reconstruction_err_``, ``n_iter_``),
@@ -40,7 +40,7 @@ Semantics notes vs sklearn (`sklearn/decomposition/_nmf.py`):
     general beta folds in via W-only beta-MU steps on dense rows
     (foldin._beta_w_loop_dense); sparse inputs at a general beta
     raise with a densify hint.
-  * Extra TPU-side parameters (``mesh``, ``strategy``, ``v_storage``,
+  * Extra engine parameters (``mesh``, ``strategy``, ``v_storage``,
     ``num_runs``, ``algorithm``) default to the sklearn-equivalent
     behavior and are ignored by sklearn-written call sites.
 
@@ -741,7 +741,7 @@ def non_negative_factorization(
     random_state=None,
     verbose=0,
     shuffle=False,
-    **tpu_params,
+    **engine_params,
 ):
     """Drop-in ``sklearn.decomposition.non_negative_factorization``
     (the module-level function API). Returns ``(W, H, n_iter)``.
@@ -756,7 +756,7 @@ def non_negative_factorization(
     ``max_iter`` full steps — sklearn's early-stop criteria there
     (10-step divergence checks / the CD violation ratio) stop at the
     same fixed point sooner; pass a smaller max_iter for budget control.
-    Extra keyword ``tpu_params`` (mesh, strategy, v_storage, dtype, ...)
+    Extra keyword ``engine_params`` (mesh, strategy, v_storage, dtype, ...)
     forward to the facade.
     """
     import jax
@@ -768,18 +768,18 @@ def non_negative_factorization(
             beta_loss=beta_loss, tol=tol, max_iter=max_iter,
             alpha_W=alpha_W, alpha_H=alpha_H, l1_ratio=l1_ratio,
             random_state=random_state, verbose=verbose, shuffle=shuffle,
-            **tpu_params,
+            **engine_params,
         )
         W_out = est.fit_transform(X, W=W, H=H)
         return W_out, est.components_, est.n_iter_
 
     if H is None:
         raise ValueError("update_H=False requires H (the fixed factor)")
-    dtype = tpu_params.pop("dtype", "float32")
-    if tpu_params:
+    dtype = engine_params.pop("dtype", "float32")
+    if engine_params:
         raise TypeError(
             f"unsupported parameters for update_H=False: "
-            f"{sorted(tpu_params)}"
+            f"{sorted(engine_params)}"
         )
     data, is_sparse = _as_nmftpu_input(X)
     if is_sparse:
@@ -863,7 +863,7 @@ def non_negative_factorization(
 
         @jax.jit
         def run(Xd, Hd, W0):
-            G = Hd @ Hd.T + l2_w * jnp.eye(r, dtype=dtype)
+            G = D.gram_rows(Hd) + l2_w * jnp.eye(r, dtype=dtype)
             XHt = Xd @ Hd.T - l1_w
 
             def body(_, Wc):

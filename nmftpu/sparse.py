@@ -3,8 +3,8 @@
 The reference accepts V in CSR/CSC/COO in addition to dense (the R binding
 converts Matrix/SparseM objects to indexed triplets). These containers are
 the host-side equivalent: plain numpy storage, format conversions, and the
-entry point into the TPU device layout (`nmftpu.sparse_ops.BlockedRows` —
-a padded row-bucketed ELL layout that Mosaic/XLA can tile).
+entry point into the device layouts of `nmftpu.sparse_ops` and
+`nmftpu.sparse_ell` (padded row-bucketed layouts that XLA can tile).
 
 No scipy dependency is required; `from_scipy` accepts scipy.sparse objects
 opportunistically when scipy is installed.
@@ -21,7 +21,7 @@ import numpy as np
 def _native_csr(major, minor, data, n_major):
     """Fused native CSR build (nmio_csr_build: counting-sort fill +
     OpenMP per-row col sort — measured ~5x the numpy fused-key sort at
-    100M nnz, BENCH_host_partition.json). Returns (indptr, indices,
+    100M nnz, scripts/bench_host_partition.py). Returns (indptr, indices,
     data) or None to fall back: f32 values only (the native path
     stores float), large inputs only (ctypes overhead + identical
     numpy behavior below), NMFTPU_NATIVE_CSR=0 disables."""
@@ -43,7 +43,7 @@ def _native_csr(major, minor, data, n_major):
 def _two_key_order(major, minor, minor_extent):
     """argsort by (major, minor). When major*extent+minor fits int64 the
     two keys fuse into ONE int64 quicksort — ~4x faster than np.lexsort
-    at 100M nnz (the cfg4 ingest hot spot; BENCH_host_partition.json).
+    at 100M nnz (the cfg4 ingest hot spot; scripts/bench_host_partition.py).
 
     Duplicate-coordinate caveat: the fused sort is deterministic (same
     input -> same permutation) but NOT input-order stable, so duplicate

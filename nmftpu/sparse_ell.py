@@ -169,10 +169,10 @@ def build_ell_rows(
 
 
 def _gather_rows(Ht, flat_cols):
-    """The measured-fastest TPU gather form (round-2 probes, PERF.md):
-    axis-0 row gather from a (m, r) table with promise_in_bounds — 1.7x
-    over the lane-dimension (axis-1) gather XLA emits for `take(H, axis=1)`.
-    Builders keep segment columns sorted for locality."""
+    """Axis-0 row gather from a (m, r) table with promise_in_bounds:
+    each gathered row is one contiguous r-vector, where `take(H,
+    axis=1)` would gather strided columns. Builders keep segment
+    columns sorted for locality."""
     return Ht.at[flat_cols].get(
         mode="promise_in_bounds", indices_are_sorted=False
     )
@@ -219,8 +219,7 @@ def v_ht_ell(ell: EllRows, H, chunk: int = 2048,
     """V @ H^T -> (n, r). Gathers dominate; the only scatter is the
     per-segment row accumulation (#segments ≈ n + nnz/seg_max).
 
-    gather_dtype optionally down-casts the gathered table (measured
-    neutral on v5e — the gather is latency-bound, not bandwidth-bound)."""
+    gather_dtype optionally down-casts the gathered table."""
     H = jnp.asarray(H)
     Ht = H.T if gather_dtype is None else H.T.astype(gather_dtype)
     n = ell.shape[0]
@@ -407,10 +406,10 @@ def mu_update_frobenius_ell(pair: EllPair, W, H, eps=1e-9, order="WH"):
     """Sparse MU (Frobenius) on the gather-only layout."""
 
     def upd_w(W, H):
-        return W * (v_ht_ell(pair.rows, H) / (W @ (H @ H.T) + eps))
+        return W * (v_ht_ell(pair.rows, H) / (W @ D.gram_rows(H) + eps))
 
     def upd_h(W, H):
-        return H * (wt_v_ell(pair, W) / ((W.T @ W) @ H + eps))
+        return H * (wt_v_ell(pair, W) / (D.gram_cols(W) @ H + eps))
 
     if order == "WH":
         W = upd_w(W, H)
@@ -434,14 +433,14 @@ def mu_update_frobenius_weighted_ell(pair: EllPair, W, H, alpha,
 
     def upd_w(W, H):
         numer, alpha_part = sampled_rowsums_ell(pair.rows, W, H, fns)
-        denom = W @ (H @ H.T) + alpha * alpha_part + eps
+        denom = W @ D.gram_rows(H) + alpha * alpha_part + eps
         return W * (numer / denom)
 
     def upd_h(W, H):
         Wt = jnp.asarray(W).T
         Ht = jnp.asarray(H).T
         numer, alpha_part = sampled_rowsums_ell(pair.cols, Ht, Wt, fns)
-        denom = (W.T @ W) @ H + alpha * alpha_part.T + eps
+        denom = D.gram_cols(W) @ H + alpha * alpha_part.T + eps
         return H * (numer.T / denom)
 
     if order == "WH":
@@ -465,10 +464,10 @@ def als_family_update_ell(
 
     def upd_w(W, H):
         rhs = v_ht_ell(pair.rows, H).T                    # (r, n)
-        return _solve_clamped(H @ H.T, rhs, shift_w, off_w, eps).T
+        return _solve_clamped(D.gram_rows(H), rhs, shift_w, off_w, eps).T
 
     def upd_h(W, H):
-        return _solve_clamped(W.T @ W, wt_v_ell(pair, W), shift_h, off_h,
+        return _solve_clamped(D.gram_cols(W), wt_v_ell(pair, W), shift_h, off_h,
                               eps)
 
     if order == "WH":
@@ -483,10 +482,10 @@ def als_family_update_ell(
 def gdcls_update_ell(pair: EllPair, W, H, lambda_tik=0.0, eps=1e-9,
                      order="WH"):
     def upd_w(W, H):
-        return W * (v_ht_ell(pair.rows, H) / (W @ (H @ H.T) + eps))
+        return W * (v_ht_ell(pair.rows, H) / (W @ D.gram_rows(H) + eps))
 
     def upd_h(W, H):
-        return _solve_clamped(W.T @ W, wt_v_ell(pair, W), lambda_tik, 0.0,
+        return _solve_clamped(D.gram_cols(W), wt_v_ell(pair, W), lambda_tik, 0.0,
                               eps)
 
     if order == "WH":
@@ -532,11 +531,11 @@ def nsnmf_update_ell(pair: EllPair, W, H, S, eps=1e-9, order="WH"):
 
     def upd_w(W, H):
         SH = S @ H
-        return W * (v_ht_ell(pair.rows, SH) / (W @ (SH @ SH.T) + eps))
+        return W * (v_ht_ell(pair.rows, SH) / (W @ D.gram_rows(SH) + eps))
 
     def upd_h(W, H):
         WS = W @ S
-        return H * (wt_v_ell(pair, WS) / ((WS.T @ WS) @ H + eps))
+        return H * (wt_v_ell(pair, WS) / (D.gram_cols(WS) @ H + eps))
 
     if order == "WH":
         W = upd_w(W, H)
@@ -558,7 +557,7 @@ def frobenius_error_ell(pair: EllPair, W, H, sum_v_sq=None) -> jax.Array:
         sum_v_sq = sum_v_sq_ell(pair.rows)
     WtV = wt_v_ell(pair, W)
     cross = jnp.sum(WtV * H)
-    quad = jnp.sum((W.T @ W) * (H @ H.T))
+    quad = jnp.sum(D.gram_cols(W) * D.gram_rows(H))
     return jnp.sqrt(jnp.maximum(sum_v_sq - 2.0 * cross + quad, 0.0))
 
 
@@ -804,8 +803,8 @@ def kl_error_masked_ell(pair: EllPair, W, H, eps=1e-12) -> jax.Array:
 #
 # The scatter-COO formulation scatters one (r, r) outer product PER
 # NONZERO into the (n, r, r) accumulator (nnz * 16 KB at r=64 — 87 GB of
-# scatter traffic at ML-20M shape; measured 1.23 s/side on a v5e). Here
-# each bucket's Gram contributions are ONE batched MXU GEMM over the
+# scatter traffic at ML-20M shape). Here
+# each bucket's Gram contributions are ONE batched GEMM over the
 # gathered rows — (nseg, r, w) x (nseg, w, r) — and only the (nseg, r, r)
 # SEGMENT results are scattered (nseg ~ n + nnz/seg_max), cutting the
 # scatter traffic by ~the mean row length.
@@ -884,7 +883,7 @@ def als_update_weighted_ell_exact(pair: EllPair, W, H, alpha,
         (H Hᵀ + Σ_{i∈u} αv_ui h_i h_iᵀ + (λ+eps)I) w_u = H (c_u ⊙ v_u)
 
     with the Gram deltas AND right-hand sides built bucket-wise from one
-    gather (grams_and_rhs_ell) — batched MXU GEMMs + segment-level
+    gather (grams_and_rhs_ell) — batched GEMMs + segment-level
     scatter instead of per-nonzero (r, r) scatters."""
     from nmftpu.sparse_ops import _row_solver
 
@@ -895,13 +894,13 @@ def als_update_weighted_ell_exact(pair: EllPair, W, H, alpha,
     solve = _row_solver(solver, cg_steps)
 
     def upd_w(W, H):
-        G = (H @ H.T).astype(jnp.float32)
+        G = D.gram_rows(H).astype(jnp.float32)
         dG, rhs = grams_and_rhs_ell(pair.rows, H.T, w_fn, cv_fn)
         Wn = solve(G[None] + dG, rhs, lambda_w, eps, W)
         return Wn.astype(W.dtype)
 
     def upd_h(W, H):
-        G = (W.T @ W).astype(jnp.float32)
+        G = D.gram_cols(W).astype(jnp.float32)
         dG, rhs = grams_and_rhs_ell(pair.cols, W, w_fn, cv_fn)
         Hn = solve(G[None] + dG, rhs, lambda_h, eps, H.T)
         return Hn.T.astype(H.dtype)

@@ -1,11 +1,9 @@
 """Device-side sparse NMF (SURVEY.md C11, C13, §7-PR3).
 
-TPU-first design: instead of CSR gather loops (the reference's cuSPARSE
-csrmm path), nonzeros live in a zero-padded, row-sorted COO layout
+Design: instead of CSR gather loops (the reference's cuSPARSE csrmm
+path), nonzeros live in a zero-padded, row-sorted COO layout
 (`DeviceCOO`) processed in fixed-size chunks under `lax.scan` — static
-shapes throughout, so XLA can pipeline the gathers/scatter-adds, and the
-identical structure later drops into a Pallas kernel with scalar-prefetched
-indices. Padding entries carry value 0 and indices 0, making them exact
+shapes throughout, so XLA can pipeline the gathers/scatter-adds. Padding entries carry value 0 and indices 0, making them exact
 no-ops in every primitive.
 
 Primitives (all O(nnz * r)):
@@ -38,6 +36,7 @@ from nmftpu.config import (
 )
 from nmftpu.linalg import dense as D
 from nmftpu.loop import LoopOps, NmfResult, build_runner, execute
+from nmftpu import backend
 from nmftpu import sparse as host_sparse
 
 # Default nonzero-chunk size for the scan pipeline. 128k nonzeros * r=128
@@ -192,7 +191,7 @@ def frobenius_error(coo: DeviceCOO, W, H, sum_v_sq=None) -> jax.Array:
         sum_v_sq = jnp.sum(vv * vv)
     WtV = wt_v(coo, W)
     cross = jnp.sum(WtV * H)
-    quad = jnp.sum((W.T @ W) * (H @ H.T))
+    quad = jnp.sum(D.gram_cols(W) * D.gram_rows(H))
     return jnp.sqrt(jnp.maximum(sum_v_sq - 2.0 * cross + quad, 0.0))
 
 
@@ -221,10 +220,10 @@ def mu_update_frobenius_sparse(coo, W, H, eps=1e-9, order="WH"):
     """Sparse MU (Frobenius): numerators are SpMMs, denominators Gram GEMMs."""
 
     def upd_w(W, H):
-        return W * (v_ht(coo, H) / (W @ (H @ H.T) + eps))
+        return W * (v_ht(coo, H) / (W @ D.gram_rows(H) + eps))
 
     def upd_h(W, H):
-        return H * (wt_v(coo, W) / ((W.T @ W) @ H + eps))
+        return H * (wt_v(coo, W) / (D.gram_cols(W) @ H + eps))
 
     if order == "WH":
         W = upd_w(W, H)
@@ -442,12 +441,12 @@ def mu_update_frobenius_weighted_sparse(coo, W, H, alpha, eps=1e-9,
 
     def upd_w(W, H):
         swh = coo.with_values(coo.values * sddmm(coo, W, H))
-        denom = W @ (H @ H.T) + alpha * v_ht(swh, H) + eps
+        denom = W @ D.gram_rows(H) + alpha * v_ht(swh, H) + eps
         return W * (v_ht(cv, H) / denom)
 
     def upd_h(W, H):
         swh = coo.with_values(coo.values * sddmm(coo, W, H))
-        denom = (W.T @ W) @ H + alpha * wt_v(swh, W) + eps
+        denom = D.gram_cols(W) @ H + alpha * wt_v(swh, W) + eps
         return H * (wt_v(cv, W) / denom)
 
     if order == "WH":
@@ -556,11 +555,11 @@ def als_family_update_sparse(
     sparse right-hand sides W^T V / V H^T, diagonal (+optional AHCLS
     off-diagonal) shifts, then clamp."""
     def upd_w(W, H):
-        Wt = _solve_clamped(H @ H.T, v_ht(coo, H).T, shift_w, off_w, eps)
+        Wt = _solve_clamped(D.gram_rows(H), v_ht(coo, H).T, shift_w, off_w, eps)
         return Wt.T
 
     def upd_h(W, H):
-        return _solve_clamped(W.T @ W, wt_v(coo, W), shift_h, off_h, eps)
+        return _solve_clamped(D.gram_cols(W), wt_v(coo, W), shift_h, off_h, eps)
 
     if order == "WH":
         W = upd_w(W, H)
@@ -650,7 +649,7 @@ def als_update_weighted_sparse(coo, W, H, alpha, lambda_w=0.0,
 
     def upd_w(W, H):
         Ht32 = H.T.astype(jnp.float32)
-        G = (H @ H.T).astype(jnp.float32)
+        G = D.gram_rows(H).astype(jnp.float32)
         dG = _weighted_row_grams(coo, Ht32, alpha, n)
         cv = coo.with_values(coo.values * (1.0 + alpha * coo.values))
         rhs = v_ht(cv, H).astype(jnp.float32)              # (n, r)
@@ -659,7 +658,7 @@ def als_update_weighted_sparse(coo, W, H, alpha, lambda_w=0.0,
 
     def upd_h(W, H):
         W32 = W.astype(jnp.float32)
-        G = (W.T @ W).astype(jnp.float32)
+        G = D.gram_cols(W).astype(jnp.float32)
         dG = _weighted_row_grams(coo, W32, alpha, m, by_cols=True)
         cv = coo.with_values(coo.values * (1.0 + alpha * coo.values))
         rhs = wt_v(cv, W).T.astype(jnp.float32)            # (m, r)
@@ -731,12 +730,12 @@ def hals_update_sparse(coo, W, H, eps=1e-9, order="WH", l2_w=0.0,
 
     def sweep_w(W, H):
         return D.hals_half_sweep(
-            v_ht(coo, H) - l1_w, H @ H.T + l2_w * eye, W
+            v_ht(coo, H) - l1_w, D.gram_rows(H) + l2_w * eye, W
         )
 
     def sweep_h(W, H):
         return D.hals_half_sweep(
-            wt_v(coo, W).T - l1_h, W.T @ W + l2_h * eye, H.T
+            wt_v(coo, W).T - l1_h, D.gram_cols(W) + l2_h * eye, H.T
         ).T
 
     if order == "WH":
@@ -752,10 +751,10 @@ def gdcls_update_sparse(coo, W, H, lambda_tik=0.0, eps=1e-9, order="WH"):
     """GDCLS sparse: MU step for W, Tikhonov LS for H."""
 
     def upd_w(W, H):
-        return W * (v_ht(coo, H) / (W @ (H @ H.T) + eps))
+        return W * (v_ht(coo, H) / (W @ D.gram_rows(H) + eps))
 
     def upd_h(W, H):
-        return _solve_clamped(W.T @ W, wt_v(coo, W), lambda_tik, 0.0,
+        return _solve_clamped(D.gram_cols(W), wt_v(coo, W), lambda_tik, 0.0,
                               eps)
 
     if order == "WH":
@@ -774,11 +773,11 @@ def nsnmf_update_sparse(coo, W, H, S, eps=1e-9, objective="frobenius",
 
         def upd_w(W, H):
             SH = S @ H
-            return W * (v_ht(coo, SH) / (W @ (SH @ SH.T) + eps))
+            return W * (v_ht(coo, SH) / (W @ D.gram_rows(SH) + eps))
 
         def upd_h(W, H):
             WS = W @ S
-            return H * (wt_v(coo, WS) / ((WS.T @ WS) @ H + eps))
+            return H * (wt_v(coo, WS) / (D.gram_cols(WS) @ H + eps))
 
     else:  # KL
 
@@ -1134,14 +1133,12 @@ def _sparse_ops_bundle(config: NmfConfig) -> LoopOps:
     )
 
 
-# HBM budget for the densified-bf16 strategy (see nmftpu.densified):
-# matrices up to this dense-bf16 footprint run on the MXU instead of the
-# gather/scatter path. Override with NMFTPU_DENSIFY_BUDGET_BYTES.
-import os as _os
-
-DENSIFY_BUDGET_BYTES = int(
-    _os.environ.get("NMFTPU_DENSIFY_BUDGET_BYTES", 8 * 1024**3)
-)
+def densify_budget_bytes() -> int:
+    """Device-memory budget of the densified strategy (see
+    nmftpu.densified): matrices up to this dense footprint run as dense
+    GEMMs instead of the gather/scatter path. Override with
+    NMFTPU_DENSIFY_BUDGET_BYTES."""
+    return backend.memory_budget("NMFTPU_DENSIFY_BUDGET_BYTES")
 
 
 def _densified_supported(config: NmfConfig) -> bool:
@@ -1184,9 +1181,8 @@ def _densified_ops_bundle(config: NmfConfig, coo: DeviceCOO) -> LoopOps:
     if config.v_storage == "int8":
         # Operand is the (Vq int8, scale) pair from densify_quantized;
         # config validation guarantees Frobenius + unweighted here. The
-        # O(nmr) contractions run on the MXU's double-rate int8 path —
-        # the fastest in-HBM engine (1.5-1.9x over bf16, PERF.md r2) —
-        # for every algorithm; r x r solves stay exact f32.
+        # O(nmr) contractions run int8 x int8 -> int32 for every
+        # algorithm; r x r solves stay exact f32.
         if alg is Algorithm.MU:
             if config.objective is Objective.KL:
                 def update_q(V, aux, W, H):
@@ -1461,28 +1457,10 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
                 pair, W, H, a, eps=eps, order=order
             )
     elif obj is Objective.FROBENIUS:
-        if config.use_pallas:
-            # opt-in fused Pallas SpMM (the north-star kernel): gather ·
-            # multiply · segment-reduce in-kernel against a VMEM-resident
-            # table. Exact, but ~3-5x slower than the XLA gather
-            # formulation on current libtpu (receipts in PERF.md) — the
-            # default stays XLA. Interpret mode off-TPU keeps tests
-            # backend-independent.
-            import jax as _jax
 
-            from nmftpu.kernels import sparse_ell_kernel as SEK
-
-            interp = _jax.default_backend() != "tpu"
-
-            def update(pair, aux, W, H):
-                return SEK.mu_update_frobenius_ell_pallas(
-                    pair, W, H, eps=eps, order=order, interpret=interp
-                )
-        else:
-
-            def update(pair, aux, W, H):
-                return SE.mu_update_frobenius_ell(pair, W, H, eps=eps,
-                                                  order=order)
+        def update(pair, aux, W, H):
+            return SE.mu_update_frobenius_ell(pair, W, H, eps=eps,
+                                              order=order)
     elif obj is Objective.BETA:
         b_ = config.beta
 
@@ -1517,9 +1495,7 @@ def _ell_ops_bundle(config: NmfConfig) -> LoopOps:
 def _check_weighted_gram_budget(n: int, m: int, rank: int) -> None:
     """iALS materializes (n, r, r) + (m, r, r) f32 Gram deltas; refuse
     clearly instead of an opaque device OOM."""
-    budget = int(_os.environ.get(
-        "NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES", 8 * 1024**3
-    ))
+    budget = backend.memory_budget("NMFTPU_WEIGHTED_GRAM_BUDGET_BYTES")
     need = (n + m) * rank * rank * 4
     if need > budget:
         raise ValueError(
@@ -1552,21 +1528,21 @@ def _resolve_strategy(V, config: NmfConfig, strategy: str, n: int,
     if strategy == "auto":
         if config.objective is Objective.BETA:
             # every engine runs a float beta_loss now (r3 verdict item
-            # 7): densified when V fits HBM densely (fastest — MXU
+            # 7): densified when V fits the densify budget (dense GEMM
             # panels), ELL beyond it (gather numerators + streamed
             # denominators), scatter for the f64 exactness contract
             if config.dtype == "float64":
                 return "scatter"
             v_bytes_b = 1 if config.v_storage == "int8" else 2
-            if v_bytes_b * n * m <= DENSIFY_BUDGET_BYTES:
+            if v_bytes_b * n * m <= densify_budget_bytes():
                 return "densified"
             return "ell"
         if (config.algorithm is Algorithm.ALS
                 and config.alpha_confidence > 0.0):
             # iALS is sparse-aware by construction (O(nnz·r²) Gram
-            # deltas); the ELL engine builds them as batched MXU GEMMs
-            # with segment-level scatter (~50x the scatter-COO form on
-            # TPU); scatter remains the f64-exact oracle
+            # deltas); the ELL engine builds them as batched GEMMs
+            # with segment-level scatter; scatter remains the f64-exact
+            # oracle
             return "scatter" if config.dtype == "float64" else "ell"
         if config.algorithm is Algorithm.HALS:
             # the cyclic column sweeps read exact numerators: the
@@ -1581,7 +1557,7 @@ def _resolve_strategy(V, config: NmfConfig, strategy: str, n: int,
         v_bytes = 1 if config.v_storage == "int8" else 2
         if (
             _densified_supported(config)
-            and v_bytes * n * m <= DENSIFY_BUDGET_BYTES
+            and v_bytes * n * m <= densify_budget_bytes()
         ):
             return "densified"
         if not isinstance(V, DeviceCOO):
@@ -1804,21 +1780,17 @@ def compute_sparse(
 
     strategy:
       "scatter"   — chunked COO gather/scatter updates (any size);
-      "densified" — scatter V once into dense bf16 and run MXU updates
-                    (all six algorithms, both objectives; fastest whenever
-                    n*m*2 bytes fit HBM); with v_storage="int8" V
-                    densifies to int8 + scale: the Frobenius family rides
-                    the double-rate int8 MXU (~1.9x) and KL folds the
-                    scale into its blockwise numerators (~1.4x), at half
-                    the footprint either way;
+      "densified" — scatter V once into dense bf16 and run dense GEMM
+                    updates (all six algorithms, both objectives; chosen
+                    when n*m*2 bytes fit densify_budget_bytes()); with
+                    v_storage="int8" V densifies to int8 + scale: the
+                    Frobenius family contracts int8 x int8 and KL folds
+                    the scale into its blockwise numerators, at half the
+                    footprint either way;
       "ell"       — gather-only bucketed padded-segment layout (MU family;
-                    the beyond-HBM alternative to scatter); with
-                    use_pallas=True the MU-Frobenius SpMMs run the fused
-                    Pallas kernel (kernels/sparse_ell_kernel.py — exact,
-                    but slower than the XLA formulation on current
-                    libtpu, see PERF.md);
+                    the beyond-budget alternative to scatter);
       "auto"      — densified when supported and within
-                    DENSIFY_BUDGET_BYTES, else scatter.
+                    densify_budget_bytes(), else scatter.
 
     Repeated factorizations of the same matrix should use
     :func:`prepare_sparse` once and call ``plan.run(...)`` per sweep

@@ -4,7 +4,7 @@ host-side costs that gate BASELINE config #4 (100M x 10M sparse) —
 nonzeros, single process, vectorized numpy.
 
 Run with JAX_PLATFORMS=cpu (the cost under test is host CPU, not the
-device). Writes BENCH_host_partition.json.
+device). Writes chiprun_out/host_partition.json.
 """
 
 import json
@@ -81,8 +81,10 @@ def main():
               flush=True)
         del scoo, ell, coo, rows, cols, vals
 
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "BENCH_host_partition.json")
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "host_partition.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=2)
     print(json.dumps(out))

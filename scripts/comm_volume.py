@@ -1,27 +1,23 @@
 #!/usr/bin/env python
-"""Comm-volume receipt for the >=80% weak-scaling target (COMM_r05).
-
-Real multi-chip hardware is not reachable from this environment, so the
-scaling target cannot be *measured*; this script makes it FALSIFIABLE
-instead (VERDICT r4 #2):
+"""Communication volume of the sharded update, per device and iteration.
 
 1. Compile the sharded per-iteration update (grid AND ring engines) on
    a virtual CPU mesh at p = 2/4/8 and extract EVERY collective op +
    payload shape from the optimized HLO — the compiler's own statement
-   of what moves between chips each iteration.
+   of what moves between devices each iteration.
 2. Check the extracted bytes against the closed-form model of the
    design (psum'd factor numerators + r x r Grams on the 2-D grid;
    rotated blocks on the ring) and against the MPI-FAUN communication
    lower bound for NMF on a p-processor grid (Kannan–Ballard–Park,
    arxiv 1609.09154: Omega(r * sqrt(nm/p)) words/processor/iteration).
-3. Project weak-scaling efficiency at the graded cfg4 shape
-   (200k x 100k per grid cell, nnz=10M/chip, r=256; measured
-   113.92 ms/iter on the single v5e chip, BENCH_graded.json) from the
-   validated per-device wire bytes and public ICI bandwidth figures.
+3. Price the per-device wire bytes at the graded cfg4 cell (200k x 100k
+   per grid cell, nnz=10M/cell, r=256) over NVLink: 450 GB/s each way
+   between any two H100s of a host. The step time that the efficiency
+   column divides by is not measured yet; `chip_smoke.py --multi`
+   times the sharded step on four cards.
 
-Output: COMM_r05.json + a human-readable table on stdout. The
-projection is linear in the assumed ICI bandwidth — anyone with a pod
-slice can falsify it by timing one sharded step.
+Output: chiprun_out/comm_volume.json + a table on stdout. The pricing is
+linear in the assumed link rate.
 """
 
 from __future__ import annotations
@@ -256,60 +252,46 @@ def main():
                   f"{wire / 1e6:>13.2f}"
                   f"{(model or 0) / 1e6:>14.2f}{lb / 1e6:>12.2f}")
 
-    # ---- projection at the graded cfg4 shape --------------------------
-    # Weak scaling: per-device cell fixed at the measured single-chip
-    # cfg4 problem (BENCH_graded.json): 200k x 100k, nnz=10M, r=256,
-    # 113.92 ms/iter on the real v5e chip. A pu x pi grid holds an
-    # (200k*pu) x (100k*pi) global problem; per-device wire bytes from
-    # the HLO-validated grid model.
+    # ---- NVLink pricing at the graded cfg4 cell -------------------------
+    # Weak scaling: a pu x pi grid holds an (200k*pu) x (100k*pi) global
+    # problem; per-device wire bytes from the HLO-validated grid model.
+    # NVLink joins every card of a host to every other at 450 GB/s each
+    # way (NVIDIA's H100 SXM data sheet), so the mesh shape does not
+    # change the rate. The single-card step time is not measured here.
     n_cell, m_cell, r4 = 200_000, 100_000, 256
-    t_step_ms = 113.92
-    # Public ICI figures (the projection is LINEAR in these; falsify by
-    # timing one sharded step on a pod slice): v5e 4 ICI links x ~45
-    # GB/s/dir; a bidirectional ring over one mesh axis uses 2 links in
-    # both directions ~= 90 GB/s effective. v5p: 6 links x ~90 GB/s,
-    # per-axis ring ~= 180 GB/s.
-    ici = {"v5e": 90e9, "v5p": 180e9}
+    nvlink = 450e9
     proj = {}
-    for p, (pu, pi) in {2: (1, 2), 4: (2, 2), 8: (2, 4),
-                        16: (4, 4), 64: (8, 8), 256: (16, 16)}.items():
+    for p, (pu, pi) in {2: (1, 2), 4: (2, 2), 8: (2, 4)}.items():
         wire = model_grid_bytes(n_cell * pu, m_cell * pi, r4, pu, pi)
         lb = faun_lower_bound_bytes(n_cell * pu * 1, m_cell * pi, r4, p)
-        entry = {"mesh": [pu, pi],
-                 "wire_bytes_per_device": round(wire),
-                 "faun_lb_bytes_per_proc": round(lb),
-                 "x_over_faun_lb": round(wire / lb, 2)}
-        for hw, bw in ici.items():
-            t_comm_ms = wire / bw * 1e3
-            # no-overlap efficiency (pessimistic: XLA can overlap the
-            # numerator all-reduce with the Gram GEMMs)
-            eff = t_step_ms / (t_step_ms + t_comm_ms)
-            entry[hw] = {"t_comm_ms": round(t_comm_ms, 2),
-                         "eff_no_overlap": round(eff, 3)}
-        proj[p] = entry
+        proj[p] = {"mesh": [pu, pi],
+                   "wire_bytes_per_device": round(wire),
+                   "faun_lb_bytes_per_proc": round(lb),
+                   "x_over_faun_lb": round(wire / lb, 2),
+                   "t_comm_ms_nvlink": round(wire / nvlink * 1e3, 3),
+                   "eff_no_overlap": "not measured"}
     receipt["projection"] = {
         "per_device_cell": [n_cell, m_cell],
         "rank": r4,
-        "measured_single_chip_step_ms": t_step_ms,
-        "measured_source": "BENCH_graded.json cfg4 per_iter_ms_slope",
-        "ici_bandwidth_assumption_bytes_per_s": ici,
+        "single_card_step_ms": "not measured",
+        "link_bytes_per_s_each_way": nvlink,
         "weak_scaling": proj,
     }
 
-    print("\nWeak-scaling projection at cfg4 cell "
-          f"(200k x 100k / chip, r=256, {t_step_ms} ms/iter measured):")
+    print("\nNVLink pricing at the cfg4 cell (200k x 100k / device, "
+          "r=256):")
     print(f"{'p':>4}{'mesh':>9}{'wire MB/dev':>13}{'xLB':>6}"
-          f"{'v5e ms':>8}{'v5e eff':>9}{'v5p eff':>9}")
+          f"{'NVLink ms':>11}")
     for p, e in proj.items():
         print(f"{p:>4}{str(tuple(e['mesh'])):>9}"
               f"{e['wire_bytes_per_device'] / 1e6:>13.1f}"
               f"{e['x_over_faun_lb']:>6.2f}"
-              f"{e['v5e']['t_comm_ms']:>8.2f}"
-              f"{e['v5e']['eff_no_overlap']:>9.3f}"
-              f"{e['v5p']['eff_no_overlap']:>9.3f}")
+              f"{e['t_comm_ms_nvlink']:>11.3f}")
 
-    out = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "COMM_r05.json")
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "comm_volume.json")
     with open(out, "w") as f:
         json.dump(receipt, f, indent=1)
     print(f"\nwrote {out}")

@@ -17,8 +17,7 @@ Usage::
     python scripts/run_tests.py -k serving   # extra args pass through
 
 Exit code is nonzero iff any shard fails. The per-shard and total
-pass/fail counts are printed at the end; STATUS.md records the latest
-green run.
+pass/fail counts are printed at the end.
 """
 
 from __future__ import annotations

@@ -181,11 +181,6 @@ def test_config_coerces_enum_strings(rng):
         NmfConfig(rank=3, objective="not-an-objective")
 
 
-def test_use_pallas_rejects_float64():
-    with pytest.raises(ValueError, match="use_pallas"):
-        NmfConfig(rank=3, use_pallas=True, dtype="float64")
-
-
 def test_nmf_warns_on_ignored_warm_start(rng):
     import nmftpu
 

@@ -1,4 +1,4 @@
-"""mu_style='jacobi': simultaneous MU half-steps (VERDICT r4 #8).
+"""mu_style='jacobi': simultaneous MU half-steps.
 
 Jacobi coupling computes both half-steps from the incoming (W, H) —
 identical fixed points to Gauss–Seidel (both stationarity conditions
@@ -87,12 +87,6 @@ def test_jacobi_rejections(rng):
     with pytest.raises(ValueError, match="Frobenius and KL"):
         NmfConfig(rank=4, objective="beta-divergence", beta=1.5,
                   mu_style="jacobi")
-    with pytest.raises(ValueError, match="dual-numerator"):
-        NmfConfig(rank=4, mu_style="jacobi", use_pallas=True)
-    # the one allowed pallas+jacobi combination: the fused int8 kernel
-    cfg = NmfConfig(rank=4, mu_style="jacobi", use_pallas=True,
-                    v_storage="int8")
-    assert cfg.mu_style == "jacobi"
     from nmftpu.sparse import from_dense
     from nmftpu.sparse_ops import compute_sparse
 
@@ -105,28 +99,3 @@ def test_jacobi_rejections(rng):
         compute_sharded(from_dense(V),
                         NmfConfig(rank=4, mu_style="jacobi"),
                         mesh=make_grid_mesh((2, 4)))
-
-
-def test_dual_numerator_kernel_parity(rng):
-    """kernels/dual_numer.py (interpret mode off-TPU) must match the
-    XLA int8 numerator helpers bit-for-bit: identical quantization,
-    identical contraction, identical scale fold."""
-    import jax.numpy as jnp
-
-    from nmftpu.kernels.dual_numer import dual_numerators_int8
-    from nmftpu.linalg.dense import _rhs_vht_int8, _rhs_wtv_int8, \
-        quantize_sym
-
-    n, m, r = 256, 1024, 128
-    V = rng.uniform(0.0, 2.0, (n, m)).astype(np.float32)
-    W = rng.uniform(0.1, 1.0, (n, r)).astype(np.float32)
-    H = rng.uniform(0.1, 1.0, (r, m)).astype(np.float32)
-    scale_v, Vq = quantize_sym(jnp.asarray(V))
-    nw, nh = dual_numerators_int8(Vq, scale_v, W, H, bn=128, bm=512,
-                                  interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(nw), np.asarray(_rhs_vht_int8(Vq, scale_v, H)),
-        rtol=0, atol=0)
-    np.testing.assert_allclose(
-        np.asarray(nh), np.asarray(_rhs_wtv_int8(Vq, scale_v, W)),
-        rtol=0, atol=0)

@@ -1,5 +1,5 @@
 """Unit tests for the receipt tooling itself: the comm-volume HLO
-collective parser (COMM_r05.json's extraction layer) and the sharded
+collective parser (scripts/comm_volume.py's extraction layer) and the sharded
 test-gate's partitioner. A receipt is only as good as its parser."""
 
 import os
@@ -78,7 +78,7 @@ def test_wire_model():
 
 def test_ring_model_matches_extracted_bytes():
     """The ring closed-form must reproduce the exact per-instruction
-    byte sizes recorded in COMM_r05.json (blk and gram terms)."""
+    byte sizes the HLO of the ring step carries (blk and gram terms)."""
     from comm_volume import model_ring_bytes
 
     r = 64

@@ -81,8 +81,8 @@ def test_recall_perfect_with_true_factors(rng):
 
 
 def test_approx_topk_high_overlap(rng):
-    """approx_max_k path: strong overlap with exact top-k (exact on CPU
-    fallback; on TPU the recall target is ~0.95 per block)."""
+    """approx_max_k path: strong overlap with exact top-k (XLA's
+    fallback on the CPU and the GPU is an exact sort)."""
     Wq = rng.standard_normal((6, 8)).astype(np.float32)
     H = rng.standard_normal((8, 300)).astype(np.float32)
     _, i_ex = topk_mips_blocked(Wq, H, k=10, block=64, method="exact")
@@ -375,9 +375,9 @@ def test_certified_topk_detects_misses(rng):
 
 
 # ---------------------------------------------------------------------------
-# Fused reservoir MIPS kernel (kernels/mips_reservoir.py) — interpret-mode
-# parity on CPU; the on-chip recall/throughput receipts live in
-# BENCH_retrieval_10m.json / PERF.md.
+# Reservoir MIPS scan (kernels/mips_reservoir.py): the Triton kernel in
+# the Pallas interpreter and the plain XLA scan, against the slotwise
+# oracle; the on-card comparison is tests/test_gpu.py.
 # ---------------------------------------------------------------------------
 
 
@@ -470,38 +470,76 @@ def test_reservoir_int8_requires_scale(rng):
                             interpret=True)
 
 
-def test_count_above_fused_parity(rng):
-    """kernels/count_above.py (interpret off-TPU) must match the XLA
-    _count_above bit-for-bit on bf16 and int8 tables (the serving
-    dtypes — identical bf16-operand/f32-accumulate rules)."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize("b,r,m,slots,dtype", [
+    (16, 16, 512, 32, np.float32),      # exact tiles, one query block
+    (5, 32, 1000, 64, np.float32),      # odd batch, padded table
+    (37, 64, 700, 16, "bfloat16"),      # several query blocks
+    (20, 16, 333, 128, "int8"),         # fewer items than a tile row
+])
+def test_reservoir_kernel_matches_plain(rng, b, r, m, slots, dtype):
+    """The Triton scan (Pallas interpreter) and the plain XLA scan give
+    the same candidates: same ids, scores to f32 summation order."""
+    from nmftpu.kernels import mips_reservoir as M
 
-    from nmftpu.kernels.count_above import count_above_fused
-    from nmftpu.linalg.dense import quantize_sym
-    from nmftpu.retrieval.mips import _count_above
+    Wq = jnp.asarray(rng.standard_normal((b, r)).astype(np.float32))
+    Hf = rng.standard_normal((r, m)).astype(np.float32)
+    Hf[:, slots + 3] = Hf[:, 3]                 # a tie within one slot
+    if dtype == "int8":
+        H = jnp.asarray(np.clip(np.round(Hf * 40), -127, 127), jnp.int8)
+    else:
+        H = jnp.asarray(Hf, jnp.dtype(dtype))
+    mp = -(-m // slots) * slots
+    Hp = jnp.pad(H, ((0, 0), (0, mp - m)))
+    bp = -(-b // 16) * 16
+    ks, ki = M._scan_kernel(jnp.pad(Wq, ((0, bp - b), (0, 0))), Hp, m,
+                            slots, 16, 16, True)
+    ps, pi = M._scan_plain(Wq, Hp, m, slots)
+    np.testing.assert_array_equal(np.asarray(ki[:b]), np.asarray(pi))
+    np.testing.assert_allclose(np.asarray(ks[:b]), np.asarray(ps),
+                               rtol=1e-6, atol=1e-5)
 
-    n, m, r = 24, 1000, 64
-    Wq = jnp.asarray(rng.uniform(-1, 1, (n, r)).astype(np.float32))
-    Hf = rng.uniform(-1, 1, (r, m)).astype(np.float32)
-    Hb = jnp.asarray(Hf, jnp.bfloat16)
-    theta = jnp.asarray(rng.uniform(-2, 2, n).astype(np.float32))
 
-    # matched tile/block sizes => identical f32 accumulation order
-    ref = _count_above(Wq, Hb, theta, 512, None)
-    got = count_above_fused(Wq, Hb, theta, tile=512, q_block=8,
-                            interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+@pytest.mark.parametrize("m,slots,chunk", [
+    (500, 128, 1 << 20),    # one plain step
+    (1000, 64, 128),        # several steps and a tail step
+    (64, 64, 64),           # one tile
+])
+def test_plain_reservoir_matches_slotwise_oracle(rng, monkeypatch, m,
+                                                 slots, chunk):
+    """The plain scan keeps exactly the oracle's best two per slot,
+    whatever the number of tiles it merges per step."""
+    from nmftpu.kernels import mips_reservoir as M
 
-    sc, Hq = quantize_sym(jnp.asarray(Hf))
-    ref8 = _count_above(Wq, Hq, theta, 512, sc)
-    got8 = count_above_fused(Wq, Hq, theta, h_scale=sc, tile=512,
-                             q_block=8, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got8), np.asarray(ref8))
+    monkeypatch.setattr(M, "_PLAIN_CHUNK", chunk)
+    b, r = 6, 8
+    Wq = rng.standard_normal((b, r)).astype(np.float32)
+    H = rng.standard_normal((r, m)).astype(np.float32)
+    mp = -(-m // slots) * slots
+    Hp = jnp.pad(jnp.asarray(H), ((0, 0), (0, mp - m)))
+    got_s, got_i = M._scan_plain(jnp.asarray(Wq), Hp, m, slots)
+    # the oracle scores at the scan's bf16 operand rounding
+    bf = lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+    full = bf(Wq).astype(np.float64) @ bf(H).astype(np.float64)
+    cand_s, cand_i = _slotwise_top2_oracle(full.astype(np.float32), slots)
+    got_s, got_i = np.asarray(got_s), np.asarray(got_i)
+    finite = np.isfinite(cand_s)
+    np.testing.assert_array_equal(np.isfinite(got_s), finite)
+    np.testing.assert_allclose(got_s[finite], cand_s[finite], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got_i[finite], cand_i[finite])
 
-    # per-dim vector scale (pre-multiplies the queries — different
-    # rounding than the scalar's theta fold, so its own XLA reference)
-    scv = jnp.full((r,), float(sc), jnp.float32)
-    refv = _count_above(Wq, Hq, theta, 512, scv)
-    gotv = count_above_fused(Wq, Hq, theta, h_scale=scv, tile=512,
-                             q_block=8, interpret=True)
-    np.testing.assert_array_equal(np.asarray(gotv), np.asarray(refv))
+
+def test_merge_top2_keeps_lower_ids_on_ties():
+    """Merging two top-2 lists per slot: the earlier list wins ties, as
+    a sequential scan over increasing ids does."""
+    from nmftpu.kernels.mips_reservoir import _merge_top2
+
+    f = lambda *x: jnp.asarray(x, jnp.float32)
+    i = lambda *x: jnp.asarray(x, jnp.int32)
+    s1, i1, s2, i2 = _merge_top2(
+        f(5, 5, 3), i(0, 0, 0), f(1, 4, 2), i(1, 1, 1),
+        f(5, 4, 9), i(2, 2, 2), f(4, 1, 3), i(3, 3, 3))
+    np.testing.assert_array_equal(np.asarray(s1), [5, 5, 9])
+    np.testing.assert_array_equal(np.asarray(i1), [0, 0, 2])
+    np.testing.assert_array_equal(np.asarray(s2), [5, 4, 3])
+    np.testing.assert_array_equal(np.asarray(i2), [2, 1, 0])

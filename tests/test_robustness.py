@@ -1,5 +1,5 @@
 """Robustness tests (SURVEY.md §5.2–5.3): NaN-debugging mode, fault
-injection with restart-based recovery, use_pallas opt-in path."""
+injection with restart-based recovery."""
 
 import dataclasses
 import os
@@ -35,23 +35,6 @@ def test_no_nans_under_debug_nans(rng):
         assert np.isfinite(res.frobenius_error)
     finally:
         jax.config.update("jax_debug_nans", False)
-
-
-def test_use_pallas_opt_in_matches_jnp(rng):
-    V = _problem(rng, 40, 32, 4)
-    W0 = rng.uniform(0.1, 1.0, (40, 4)).astype(np.float32)
-    H0 = rng.uniform(0.1, 1.0, (4, 32)).astype(np.float32)
-    base = NmfConfig(
-        rank=4, num_iterations=15,
-        init_method=Initialization.COPY_EXISTING,
-    )
-    r_jnp = compute(V, base, W0=W0, H0=H0)
-    r_pal = compute(
-        V, dataclasses.replace(base, use_pallas=True), W0=W0, H0=H0
-    )
-    np.testing.assert_allclose(
-        r_pal.frobenius_error, r_jnp.frobenius_error, rtol=3e-2
-    )
 
 
 @pytest.mark.slow

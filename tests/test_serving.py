@@ -323,15 +323,15 @@ def test_score_scale_consistency(rng):
 
 def test_config_dtype_aliases(rng):
     """dtype aliases normalize so string-compared rules can't be
-    bypassed (e.g. use_pallas + 'double')."""
-    import pytest as _p
-
+    bypassed (e.g. the f64 engine routing with 'double')."""
     from nmftpu import NmfConfig
+    from nmftpu.sparse_ops import _resolve_strategy
 
     cfg = NmfConfig(rank=2, dtype="f4")
     assert cfg.dtype == "float32"
-    with _p.raises(ValueError, match="use_pallas"):
-        NmfConfig(rank=2, use_pallas=True, dtype="double")
+    cfg = NmfConfig(rank=2, dtype="double")
+    assert cfg.dtype == "float64"
+    assert _resolve_strategy(None, cfg, "auto", 8, 8) == "scatter"
 
 
 def test_oversampling_exclusion_matches_scatter(rng):
@@ -574,8 +574,8 @@ def test_foldin_on_padded_reservoir_table(rng):
 
 def test_exact_method_prefers_scatter_lists(rng, monkeypatch):
     """Pin the exclusion routing: method='exact' goes through the
-    scatter-list form (measured 2.3x faster than oversampling at m=10M,
-    BENCH_retrieval_10m.json), method='approx' keeps oversampling."""
+    scatter-list form (top_k cost grows with the candidate width
+    k+S), method='approx' keeps oversampling."""
     import nmftpu.serving as serving_mod
 
     V, res = _fit(rng, n=20, m=200, r=4)
@@ -604,7 +604,7 @@ def test_exact_method_prefers_scatter_lists(rng, monkeypatch):
 def test_serving_oom_backoff(rng, monkeypatch):
     """A compile/device OOM on the serving scan halves the block and
     retries with a warning instead of surfacing the raw XLA error (the
-    f32 r=256 megablock boundary at m=10M, BENCH_retrieval_10m.json)."""
+    f32 r=256 megablock boundary at m=10M)."""
     import pytest as _p
 
     import nmftpu.serving as serving_mod
@@ -651,7 +651,7 @@ def test_certified_fallback_exact(rng):
 def test_certified_wide_seen_degrades(rng):
     """A user whose seen list is too wide for oversampling exclusion
     gets a certified answer through the scatter-list scan + wide-seen
-    certify discount — no ValueError (VERDICT r4 #5)."""
+    certify discount — no ValueError."""
     V, res = _fit(rng, n=20, m=300, r=4)
     seen_dense = np.zeros_like(V)
     wide = rng.choice(300, 150, replace=False)

@@ -154,101 +154,3 @@ def test_ell_strategy_other_algorithms(rng, alg_name):
     np.testing.assert_allclose(
         re_.frobenius_error, rs.frobenius_error, rtol=1e-3
     )
-
-
-class TestPallasSpmm:
-    """The fused Pallas ELL SpMM (kernels/sparse_ell_kernel.py): the
-    north-star kernel, opt-in via use_pallas=True (the XLA formulation
-    stays the default — receipts in PERF.md round 2)."""
-
-    def test_bucket_rowsums_parity(self, rng):
-        import jax.numpy as jnp
-
-        from nmftpu.kernels import sparse_ell_kernel as K
-
-        m, r, nseg, w = 240, 16, 700, 8
-        vals = rng.uniform(0.1, 1.0, (nseg, w)).astype(np.float32)
-        cols = rng.integers(0, m, (nseg, w)).astype(np.int32)
-        Ht = rng.uniform(0.1, 1.0, (m, r)).astype(np.float32)
-        got = np.asarray(K.bucket_rowsums_pallas(
-            jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(Ht),
-            chunk=1024, interpret=True,
-        ))
-        want = (vals[:, :, None] * Ht[cols]).sum(1)
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-
-    def test_accumulate_multigroup_parity(self, rng):
-        import jax.numpy as jnp
-
-        from nmftpu.kernels import sparse_ell_kernel as K
-        from nmftpu.sparse_ell import EllBucket
-
-        n, m, r, nseg, w = 150, 96, 8, 2000, 4
-        vals = rng.uniform(0.1, 1.0, (nseg, w)).astype(np.float32)
-        cols = rng.integers(0, m, (nseg, w)).astype(np.int32)
-        rows = np.sort(rng.integers(0, n, nseg)).astype(np.int32)
-        bkt = EllBucket(vals=jnp.asarray(vals), cols=jnp.asarray(cols),
-                        out_row=jnp.asarray(rows), width=w)
-        Ht = rng.uniform(0.1, 1.0, (m, r)).astype(np.float32)
-        got = np.asarray(K.bucket_accumulate_pallas(
-            bkt, jnp.asarray(Ht), jnp.zeros((n, r), np.float32),
-            chunk=256, interpret=True,
-        ))
-        want = np.zeros((n, r), np.float32)
-        np.add.at(want, rows, (vals[:, :, None] * Ht[cols]).sum(1))
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-    def test_update_parity_with_xla_engine(self, rng):
-        import jax.numpy as jnp
-
-        from nmftpu import sparse as hs
-        from nmftpu.kernels import sparse_ell_kernel as K
-        from nmftpu.sparse_ell import build_ell_pair, \
-            mu_update_frobenius_ell
-
-        n, m, r = 200, 160, 6
-        dense = np.where(
-            rng.random((n, m)) < 0.2, rng.uniform(0.5, 3.0, (n, m)), 0
-        ).astype(np.float32)
-        pair = build_ell_pair(hs.from_dense(dense))
-        W = jnp.asarray(rng.uniform(0.1, 1.0, (n, r)), jnp.float32)
-        H = jnp.asarray(rng.uniform(0.1, 1.0, (r, m)), jnp.float32)
-        Wf, Hf = mu_update_frobenius_ell(pair, W, H)
-        Wp, Hp = K.mu_update_frobenius_ell_pallas(pair, W, H,
-                                                  interpret=True)
-        np.testing.assert_allclose(np.asarray(Wp), np.asarray(Wf),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(Hp), np.asarray(Hf),
-                                   rtol=1e-5, atol=1e-6)
-
-    def test_e2e_use_pallas(self, rng):
-        from nmftpu import NmfConfig
-        from nmftpu import sparse as hs
-        from nmftpu.config import Initialization
-        from nmftpu.sparse_ops import compute_sparse
-
-        n, m, r = 120, 90, 4
-        dense = np.where(
-            rng.random((n, m)) < 0.25, rng.uniform(0.5, 3.0, (n, m)), 0
-        ).astype(np.float32)
-        sp = hs.from_dense(dense)
-        W0 = rng.uniform(0.1, 1.0, (n, r)).astype(np.float32)
-        H0 = rng.uniform(0.1, 1.0, (r, m)).astype(np.float32)
-        import dataclasses
-
-        cfg = NmfConfig(rank=r, num_iterations=8, check_interval=4,
-                        init_method=Initialization.COPY_EXISTING)
-        ra = compute_sparse(sp, cfg, W0=W0, H0=H0, strategy="ell")
-        rp = compute_sparse(
-            sp, dataclasses.replace(cfg, use_pallas=True),
-            W0=W0, H0=H0, strategy="ell",
-        )
-        np.testing.assert_allclose(
-            rp.frobenius_error, ra.frobenius_error, rtol=1e-4
-        )
-
-    def test_table_budget_gate(self, rng):
-        from nmftpu.kernels import sparse_ell_kernel as K
-
-        assert K.table_fits(26744, 64)
-        assert not K.table_fits(10_000_000, 64)
